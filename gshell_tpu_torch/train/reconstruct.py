@@ -1,0 +1,154 @@
+"""Inverse-rendering (multiview reconstruction) trainer — PyTorch twin of
+``gshell_tpu/train/reconstruct.py`` with the ``mesh_splat`` shadow source.
+
+One ``train_step``: extraction → shadow field → render every view → losses
+→ backward → non-finite-gradient zeroing → the reference's gradient tweaks
+(hash tables ÷8, light ×64) → three Adam groups with LR 10^(−0.0002·it) →
+clamps.  Geometry sub-groups: ``deform`` and ``msdf`` at ``lr_pos``,
+``sdf_net`` at ``lr_pos·1e-2``.
+
+The main path runs f32 matrix products in full precision: TF32 is switched
+off for cuBLAS and cuDNN when a :class:`Reconstructor` is built."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..geometry.geometry import GShellGeometry
+from ..ops.image_loss import create_loss
+from ..render.light import update_pdf
+from ..render.material import MLPTexture3DConfig, init_mlp_texture
+from ..render.render import RenderFlags
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr_pos: float = 0.03
+    lr_mat: float = 0.005
+    lr_lgt: Optional[float] = None  # default lr_pos·6
+    loss: str = "logl1"
+    batch: int = 2
+    shadow_ramp_iters: int = 1000
+    use_shadows: bool = True
+    shadow_ko: int = 16
+
+
+def lr_factor(count: int) -> float:
+    """The reference's LR schedule 10^(−0.0002·count)."""
+    return 10.0 ** (-count * 0.0002)
+
+
+@dataclasses.dataclass
+class TrainState:
+    params_geo: dict
+    params_mat: dict
+    light_base: torch.Tensor
+    optimizers: tuple  # (geometry, material, light) torch.optim.Adam
+    schedulers: tuple  # matching LambdaLR
+    step: int = 0
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [t for v in tree for t in _leaves(v)]
+
+
+class Reconstructor:
+    def __init__(self, geometry: GShellGeometry, mat_cfg: MLPTexture3DConfig,
+                 flags: RenderFlags, tcfg: TrainConfig = TrainConfig()):
+        # full-f32 products on the main path (cuBLAS and cuDNN default to TF32
+        # in places); the JAX reference computes in f32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.geo = geometry
+        self.mat_cfg = mat_cfg
+        self.flags = flags
+        self.tcfg = tcfg
+        self.device = geometry.device
+        self.image_loss_fn = create_loss(tcfg.loss)
+        self.lr_lgt = tcfg.lr_lgt if tcfg.lr_lgt is not None else tcfg.lr_pos * 6.0
+
+    def init_state(self, draws, pretrain_steps: int = 1000) -> TrainState:
+        params_geo = self.geo.init_params(draws.child("geo"))
+        if pretrain_steps > 0:
+            params_geo = self.geo.pretrain_sdf(params_geo, draws.child("pretrain"), steps=pretrain_steps)
+        params_mat = init_mlp_texture(draws.child("mat"), self.mat_cfg, self.device)
+        light_base = draws.uniform("light", (512, 512, 3)).to(self.device) * 0.5 + 0.25
+        return self.make_state(params_geo, params_mat, light_base)
+
+    def make_state(self, params_geo: dict, params_mat: dict, light_base, step: int = 0) -> TrainState:
+        """Wrap parameters (made leaf tensors that require grad) with fresh
+        optimizers and schedules."""
+        def leaf(t):
+            return t.detach().clone().to(self.device).requires_grad_(True)
+
+        params_geo = {
+            "deform": leaf(params_geo["deform"]),
+            "msdf": leaf(params_geo["msdf"]),
+            "sdf_net": {k: [leaf(t) for t in v] for k, v in params_geo["sdf_net"].items()},
+        }
+        params_mat = {"tables": leaf(params_mat["tables"]), "mlp": [leaf(w) for w in params_mat["mlp"]]}
+        light_base = leaf(light_base)
+        t = self.tcfg
+        opt_geo = torch.optim.Adam([
+            {"params": [params_geo["deform"]], "lr": t.lr_pos},
+            {"params": [params_geo["msdf"]], "lr": t.lr_pos},
+            {"params": _leaves(params_geo["sdf_net"]), "lr": t.lr_pos * 1e-2},
+        ], eps=1e-8)
+        opt_mat = torch.optim.Adam(_leaves(params_mat), lr=t.lr_mat, eps=1e-8)
+        opt_lgt = torch.optim.Adam([light_base], lr=self.lr_lgt, eps=1e-8)
+        opts = (opt_geo, opt_mat, opt_lgt)
+        scheds = tuple(torch.optim.lr_scheduler.LambdaLR(o, lr_factor) for o in opts)
+        return TrainState(params_geo, params_mat, light_base, opts, scheds, step)
+
+    def train_step(self, state: TrainState, draws, target: dict) -> dict:
+        """One optimization step, in place on ``state``; returns the metrics
+        (0-d tensors)."""
+        t = self.tcfg
+        it = state.step
+        shadow_scale = min(it / t.shadow_ramp_iters, 1.0)
+        denoiser_sigma = max(shadow_scale * 2.0, 1e-4)
+        light = update_pdf(state.light_base)
+        img_loss, depth_loss, reg_loss, aux = self.geo.tick(
+            draws, state.params_geo, state.params_mat, self.mat_cfg, light, target, it,
+            self.flags, self.image_loss_fn, use_shadows=t.use_shadows,
+            shadow_scale=shadow_scale, denoiser_sigma=denoiser_sigma, shadow_ko=t.shadow_ko,
+        )
+        total = img_loss + depth_loss + reg_loss
+        for opt in state.optimizers:
+            opt.zero_grad(set_to_none=True)
+        total.backward()
+
+        # Non-finite gradients (grazing rays, degenerate silhouettes) are
+        # zeroed instead of poisoning the Adam moments, and counted.
+        groups = (state.params_geo, state.params_mat, [state.light_base])
+        bad = torch.zeros((), dtype=torch.int64, device=self.device)
+        with torch.no_grad():
+            for p in (p for g in groups for p in _leaves(g)):
+                if p.grad is None:  # an unused parameter gets a zero gradient, as in optax
+                    p.grad = torch.zeros_like(p)
+                finite = torch.isfinite(p.grad)
+                bad += (~finite).sum()
+                p.grad.copy_(torch.where(finite, p.grad, 0.0))
+            state.params_mat["tables"].grad.mul_(1.0 / 8.0)
+            state.light_base.grad.mul_(64.0)
+        for opt, sched in zip(state.optimizers, state.schedulers):
+            opt.step()
+            sched.step()
+        self.geo.clamp_params(state.params_geo)
+        with torch.no_grad():
+            state.light_base.clamp_(min=1e-4)
+        state.step = it + 1
+        return {
+            "total": total.detach(),
+            "img_loss": img_loss.detach(),
+            "depth_loss": depth_loss.detach(),
+            "reg_loss": reg_loss.detach(),
+            "nonfinite_grads": bad,
+            **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()},
+        }
