@@ -13,14 +13,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from gshell_tpu.geometry.tet_grid import build_tet_grid
-
 from ..ops.mesh_ops import auto_normals, compact_faces, sample_surface
 from ..ops.shade import make_shadow_field
 from ..render import regularizer as reg
 from ..render.render import RenderFlags, render_mesh
 from .gshell_tets import GShellTets
 from .mlp import MLPConfig, apply_mlp, init_mlp
+from .tet_grid import build_tet_grid, default_capacities
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +59,6 @@ class GShellGeometry:
         self.grid = build_tet_grid(cfg.grid_res, build_topology=False)
         mt, mv = cfg.max_tets, cfg.max_verts
         if (mt is None or mv is None) and cfg.capacity_safety != 1.0:
-            from gshell_tpu.geometry.tet_grid import default_capacities
-
             d_t, d_v = default_capacities(
                 self.grid.res, self.grid.n_tets, self.grid.n_edges, safety=cfg.capacity_safety
             )

@@ -18,10 +18,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gshell_tpu.geometry import tet_tables as tt
-from gshell_tpu.geometry.tet_grid import EDGE_OFFSETS, TetGrid, _PATHS, default_capacities
-
 from ..ops.compact import nonzero_compact
+from . import tet_tables as tt
+from .tet_grid import EDGE_OFFSETS, TetGrid, _PATHS, default_capacities
 
 
 def _tet_corner_offsets():

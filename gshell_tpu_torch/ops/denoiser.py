@@ -4,10 +4,13 @@ PyTorch counterpart of ``gshell_tpu/ops/denoiser.py``.  Per pixel a
 (2r+1)² bilateral filter with weights gaussian(distance) · ⟨n_tap, n_c⟩¹²⁸ ·
 exp(−|Δz| / (dz·distance)).  :func:`bilateral_accumulate` is the stencil: on
 a CUDA tensor the hand-written kernel ``csrc/bilateral.cu``, on a CPU tensor
-the plain version beside it.  :class:`BilateralDenoiser` wraps it as an
-autograd function whose backward runs the transposed stencil
-(``denom_from_tap=True``) — the weights are constants, as in the reference's
-hand-written backward.
+the plain version beside it.  The colour has 3 channels, or 6 when the
+renderer denoises diffuse and specular (which share their guides) in one
+call; each channel sums its taps in the same order either way, so one
+6-channel call equals two 3-channel calls bit for bit.
+:class:`BilateralDenoiser` wraps it as an autograd function whose backward
+runs the transposed stencil (``denom_from_tap=True``) — the weights are
+constants, as in the reference's hand-written backward.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ def bilateral_plain(col, nrm, zdz, sigma, r: int, denom_from_tap: bool = False):
     """Plain PyTorch stencil (JAX ``_accumulate`` :67), one padded slice per
     tap offset, taps in row-major (fy, fx) order.  ``denom_from_tap`` takes
     dz at the tap instead of the centre (the transposed stencil).  Returns
-    (acc_col (H, W, 3), acc_w (H, W, 1))."""
+    (acc_col (H, W, C), acc_w (H, W, 1))."""
     h, w, _ = col.shape
     f32 = dict(dtype=torch.float32, device=col.device)
     inv2var = torch.tensor(_inv2var(sigma), **f32)
@@ -67,22 +70,25 @@ def bilateral_plain(col, nrm, zdz, sigma, r: int, denom_from_tap: bool = False):
 
 def bilateral_accumulate(col, nrm, zdz, sigma, r: int = 11, denom_from_tap: bool = False):
     """The (2r+1)² stencil.  CUDA tensors: the hand kernel; CPU tensors: the
-    plain version.  col/nrm (H, W, 3), zdz (H, W, 2) f32; ``sigma`` a Python
-    or 0-d tensor scalar.  Returns (acc_col (H, W, 3), acc_w (H, W, 1))."""
+    plain version.  col (H, W, C) with C in {3, 6}, nrm (H, W, 3), zdz
+    (H, W, 2) f32; ``sigma`` a Python or 0-d tensor scalar.  Returns
+    (acc_col (H, W, C), acc_w (H, W, 1))."""
     global bilateral_launches
     if col.device.type == "cpu":
         return bilateral_plain(col, nrm, zdz, sigma, r, denom_from_tap)
-    h, w, _ = col.shape
+    h, w, c = col.shape
     dev = col.device
-    kernels.require(col, "col", torch.float32, (h, w, 3), dev)
+    if c not in (3, 6):
+        raise ValueError(f"col: {c} channels, expected 3 or 6")
+    kernels.require(col, "col", torch.float32, (h, w, c), dev)
     kernels.require(nrm, "nrm", torch.float32, (h, w, 3), dev)
     kernels.require(zdz, "zdz", torch.float32, (h, w, 2), dev)
-    acc_col = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    acc_col = torch.empty((h, w, c), dtype=torch.float32, device=dev)
     acc_w = torch.empty((h, w, 1), dtype=torch.float32, device=dev)
     err = kernels.lib().gs_bilateral(
         ctypes.c_void_p(col.data_ptr()), ctypes.c_void_p(nrm.data_ptr()),
         ctypes.c_void_p(zdz.data_ptr()), ctypes.c_void_p(acc_col.data_ptr()),
-        ctypes.c_void_p(acc_w.data_ptr()), h, w, int(r), _inv2var(sigma),
+        ctypes.c_void_p(acc_w.data_ptr()), h, w, c, int(r), _inv2var(sigma),
         int(bool(denom_from_tap)), ctypes.c_void_p(kernels.stream_ptr(col)),
     )
     kernels.check(err, "bilateral_accumulate")
@@ -112,6 +118,6 @@ class BilateralDenoiser(torch.autograd.Function):
 
 
 def bilateral_denoiser(col, nrm, zdz, sigma, max_radius: int = 11):
-    """Denoise ``col`` (H, W, 3) weighted by normals (H, W, 3) and (z, dz)
+    """Denoise ``col`` (H, W, 3 or 6) weighted by normals (H, W, 3) and (z, dz)
     (H, W, 2); ``sigma`` is a Python float (the spatial σ)."""
     return BilateralDenoiser.apply(col, nrm.detach(), zdz.detach(), float(sigma), max_radius)

@@ -28,9 +28,12 @@ _BIG = 3.4e38
 TILE = 16  # screen tile side in pixels (kTile of csrc/rasterize_stage_b.cu)
 _PX = TILE * TILE
 _CHUNK = 16384  # pairs per block of the plain stage B
+STAGE_B_SUB = 32  # most pairs per sub-segment of the stage-B kernel (kSub)
 
-# Launches of the stage-B CUDA kernel (plain integer; chip_smoke resets it).
-stage_b_launches = 0
+# Calls of the stage-B CUDA kernel (plain integer; chip_smoke resets it).
+# Each call launches three CUDA kernels: schedule, test and unpack.
+stage_b_calls = 0
+_layout_checked = False
 
 
 class Rast(NamedTuple):
@@ -83,34 +86,33 @@ def _edge_coeffs(sx, sy):
 # ----------------------------------------------------------------------------
 
 
-def stage_b_plain(pair_data, tile_start, tile_cnt, n_tiles: int, tx_n: int):
-    """Plain PyTorch stage B, the reference for ``csrc/rasterize_stage_b.cu``.
+def _segment_best(pair_data, seg_start, seg_cnt, seg_tile, tx_n: int):
+    """Each segment's per-pixel winner over the TILE² pixels of its tile.
 
-    Each pair is evaluated against the TILE² pixels of its tile as a
-    (_CHUNK, TILE²) depth block (BIG where not covered); per (tile, pixel) the
-    least depth wins (``scatter_reduce amin``), then the least id among the
-    pairs at that depth.  Segments are walked whole (no per-tile cap).
-    Returns (best_z (n_tiles, TILE²) f32, best_id (n_tiles, TILE²) int32,
+    Each pair is evaluated against its tile's pixels as a (_CHUNK, TILE²)
+    depth block (BIG where not covered); per (segment, pixel) the least depth
+    wins (``scatter_reduce amin``), then the least id among the pairs at that
+    depth.  Returns (best_z (n_seg, TILE²) f32, best_id (n_seg, TILE²) int32,
     -1 = miss)."""
     dev = pair_data.device
-    px_n = _PX
-    chunk = _CHUNK
-    cnt = tile_cnt.long()
+    n_seg = seg_cnt.shape[0]
+    cnt = seg_cnt.long()
     total = int(cnt.sum())
-    best_z = torch.full((n_tiles * px_n,), _BIG, dtype=torch.float32, device=dev)
-    best_id = torch.full((n_tiles * px_n,), -1, dtype=torch.int32, device=dev)
+    best_z = torch.full((n_seg * _PX,), _BIG, dtype=torch.float32, device=dev)
+    best_id = torch.full((n_seg * _PX,), -1, dtype=torch.int32, device=dev)
     if total == 0:
-        return best_z.view(n_tiles, px_n), best_id.view(n_tiles, px_n)
-    tiles = torch.repeat_interleave(torch.arange(n_tiles, device=dev), cnt)
+        return best_z.view(n_seg, _PX), best_id.view(n_seg, _PX)
+    segs = torch.repeat_interleave(torch.arange(n_seg, device=dev), cnt)
     seg0 = torch.cumsum(cnt, 0) - cnt
-    rows = torch.repeat_interleave(tile_start.long(), cnt) + (
+    rows = torch.repeat_interleave(seg_start.long(), cnt) + (
         torch.arange(total, device=dev) - torch.repeat_interleave(seg0, cnt)
     )
-    lin = torch.arange(px_n, device=dev)
+    tiles = seg_tile.long()[segs]
+    lin = torch.arange(_PX, device=dev)
 
     def chunk_depth(lo):
-        t = tiles[lo:lo + chunk]
-        s = pair_data[rows[lo:lo + chunk]]  # (k, 16)
+        t = tiles[lo:lo + _CHUNK]
+        s = pair_data[rows[lo:lo + _CHUNK]]  # (k, 16)
         py = ((t // tx_n)[:, None] * TILE + lin[None] // TILE).float() + 0.5
         px = ((t % tx_n)[:, None] * TILE + lin[None] % TILE).float() + 0.5
         ar = s[:, 12:13]
@@ -129,47 +131,144 @@ def stage_b_plain(pair_data, tile_start, tile_cnt, n_tiles: int, tx_n: int):
         depth = depth_num * (1.0 / torch.where(ar.abs() > 1e-12, ar, 1.0))
         cover = cover & (depth >= -1.0) & (depth <= 1.0)
         depth = torch.where(cover, depth, _BIG)
-        flat = (t[:, None] * px_n + lin[None]).reshape(-1)
+        flat = (segs[lo:lo + _CHUNK][:, None] * _PX + lin[None]).reshape(-1)
         ids = (s[:, 13:14].to(torch.int32) - 1).expand_as(depth)
         return depth.reshape(-1), flat, ids.reshape(-1)
 
-    for lo in range(0, total, chunk):  # pass 1: least depth
+    for lo in range(0, total, _CHUNK):  # pass 1: least depth
         depth, flat, _ = chunk_depth(lo)
         best_z.scatter_reduce_(0, flat, depth, reduce="amin")
     big_id = torch.iinfo(torch.int32).max
     best_id.fill_(big_id)
-    for lo in range(0, total, chunk):  # pass 2: least id at that depth
+    for lo in range(0, total, _CHUNK):  # pass 2: least id at that depth
         depth, flat, ids = chunk_depth(lo)
         win = (depth == best_z[flat]) & (depth < _BIG)
         best_id.scatter_reduce_(0, flat, torch.where(win, ids, big_id), reduce="amin")
     best_id = torch.where(best_id == big_id, -1, best_id)
-    return best_z.view(n_tiles, px_n), best_id.view(n_tiles, px_n)
+    return best_z.view(n_seg, _PX), best_id.view(n_seg, _PX)
+
+
+def stage_b_plain(pair_data, tile_start, tile_cnt, n_tiles: int, tx_n: int):
+    """Plain PyTorch stage B, the reference for ``csrc/rasterize_stage_b.cu``:
+    each tile's whole segment (no per-tile cap), least depth then least id.
+    Returns (best_z (n_tiles, TILE²) f32, best_id (n_tiles, TILE²) int32,
+    -1 = miss)."""
+    tiles = torch.arange(n_tiles, device=pair_data.device)
+    return _segment_best(pair_data, tile_start, tile_cnt, tiles, tx_n)
+
+
+def stage_b_max_subs(n_tiles: int, max_pairs: int, sub: int = STAGE_B_SUB) -> int:
+    """Rows of the kernel's sub-segment table, known without a host sync:
+    sum(ceil(cnt / sub)) <= n_tiles + sum(cnt) // sub <= n_tiles +
+    max_pairs // sub."""
+    return n_tiles + max_pairs // sub
+
+
+def stage_b_schedule(tile_start, tile_cnt, sub: int = STAGE_B_SUB):
+    """The kernel's sub-segment table (``stage_b_schedule`` in the CUDA
+    source): one row (tile, first pair, pairs, sub-segments of that tile)
+    for each sub-segment of at most ``sub`` pairs, tiles in order.
+    (n_subs, 4) int64."""
+    dev = tile_cnt.device
+    cnt = tile_cnt.long()
+    nsub = (cnt + sub - 1) // sub
+    tiles = torch.repeat_interleave(torch.arange(cnt.shape[0], device=dev), nsub)
+    k = torch.arange(tiles.shape[0], device=dev) - (torch.cumsum(nsub, 0) - nsub)[tiles]
+    return torch.stack([tiles, tile_start.long()[tiles] + k * sub,
+                        torch.clamp(cnt[tiles] - k * sub, max=sub), nsub[tiles]], dim=1)
+
+
+_MISS_KEY = torch.iinfo(torch.int64).max
+
+
+def pack_key(z, ids):
+    """(order-preserving bits of z) · 2³² + id as int64, so that the least
+    key is the least z, then the least id; -0.0 counts as +0.0."""
+    bits = (z + 0.0).view(torch.int32)  # -0 + 0 = +0
+    s = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return s.long() * (1 << 32) + ids.long()
+
+
+def unpack_key(key):
+    """Inverse of :func:`pack_key`; the miss key gives (BIG, -1)."""
+    s = (key >> 32).to(torch.int32)
+    z = (s ^ ((s >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    ids = (key & 0xFFFFFFFF).to(torch.int32)
+    miss = key == _MISS_KEY
+    return torch.where(miss, _BIG, z), torch.where(miss, -1, ids)
+
+
+def stage_b_split_merge(pair_data, tile_start, tile_cnt, n_tiles: int, tx_n: int):
+    """The CUDA kernel's schedule in plain PyTorch: each tile's segment cut
+    into sub-segments of at most STAGE_B_SUB pairs, each sub-segment's winner
+    per pixel, then the tiles with one sub-segment take it directly and the
+    others merge their sub-segments' keys (:func:`pack_key`) with ``amin``,
+    as the kernel's 64-bit ``atomicMin`` does.  Same outputs as
+    :func:`stage_b_plain`."""
+    dev = pair_data.device
+    subs = stage_b_schedule(tile_start, tile_cnt)
+    z, ids = _segment_best(pair_data, subs[:, 1], subs[:, 2], subs[:, 0], tx_n)
+    best_z = torch.full((n_tiles, _PX), _BIG, dtype=torch.float32, device=dev)
+    best_id = torch.full((n_tiles, _PX), -1, dtype=torch.int32, device=dev)
+    one = subs[:, 3] == 1
+    best_z[subs[one, 0]] = z[one]
+    best_id[subs[one, 0]] = ids[one]
+    many = ~one
+    keys = torch.where(ids[many] >= 0, pack_key(z[many], ids[many]), _MISS_KEY)
+    merged = torch.full((n_tiles, _PX), _MISS_KEY, dtype=torch.int64, device=dev)
+    merged.scatter_reduce_(0, subs[many, 0:1].expand(-1, _PX), keys, reduce="amin")
+    tiles = torch.unique(subs[many, 0])
+    best_z[tiles], best_id[tiles] = unpack_key(merged[tiles])
+    return best_z, best_id
+
+
+def _stage_b_lib():
+    """The kernel library, once checked to cut tiles and sub-segments as
+    TILE and STAGE_B_SUB say (they size the table and model the kernel)."""
+    global _layout_checked
+    lib = kernels.lib()
+    if not _layout_checked:
+        tile, sub = ctypes.c_int(), ctypes.c_int()
+        lib.gs_stage_b_layout(ctypes.byref(tile), ctypes.byref(sub))
+        if (tile.value, sub.value) != (TILE, STAGE_B_SUB):
+            raise RuntimeError(f"stage-B kernel built for tile {tile.value}, sub-segments of {sub.value}; "
+                               f"rasterize.py expects {TILE}, {STAGE_B_SUB}")
+        _layout_checked = True
+    return lib
 
 
 def rasterize_stage_b(pair_data, tile_start, tile_cnt, n_tiles: int, tx_n: int):
     """Stage B on CUDA tensors: the hand kernel; on CPU tensors: the plain
-    version.  ``pair_data`` (P, 16) f32 row-major, sorted by tile;
-    ``tile_start``/``tile_cnt`` (n_tiles,) int32.  Returns (best_z, best_id)
-    as (n_tiles, TILE²) f32 / int32, id -1 = miss."""
-    global stage_b_launches
+    version.  ``pair_data`` (P, 16) f32 row-major, sorted by tile, 16-byte
+    aligned; ``tile_start``/``tile_cnt`` (n_tiles,) int32, segments inside
+    ``pair_data`` (otherwise the kernel fails its launch, and the next
+    synchronization raises).  Returns (best_z, best_id) as (n_tiles, TILE²)
+    f32 / int32, id -1 = miss."""
+    global stage_b_calls
     if pair_data.device.type == "cpu":
         return stage_b_plain(pair_data, tile_start, tile_cnt, n_tiles, tx_n)
     dev = pair_data.device
     kernels.require(pair_data, "pair_data", torch.float32, device=dev)
     if pair_data.dim() != 2 or pair_data.shape[1] != 16:
         raise ValueError(f"pair_data: shape {tuple(pair_data.shape)}, expected (P, 16)")
+    if pair_data.data_ptr() % 16:
+        raise ValueError("pair_data: must be 16-byte aligned (bulk copies)")
     kernels.require(tile_start, "tile_start", torch.int32, (n_tiles,), dev)
     kernels.require(tile_cnt, "tile_cnt", torch.int32, (n_tiles,), dev)
+    max_subs = stage_b_max_subs(n_tiles, pair_data.shape[0])
+    subs = torch.empty((max_subs, 4), dtype=torch.int32, device=dev)
+    work = torch.empty((2,), dtype=torch.int32, device=dev)
+    keys = torch.empty((n_tiles, _PX), dtype=torch.int64, device=dev)
     best_z = torch.empty((n_tiles, _PX), dtype=torch.float32, device=dev)
     best_id = torch.empty((n_tiles, _PX), dtype=torch.int32, device=dev)
-    err = kernels.lib().gs_stage_b(
-        ctypes.c_void_p(pair_data.data_ptr()), ctypes.c_void_p(tile_start.data_ptr()),
-        ctypes.c_void_p(tile_cnt.data_ptr()), ctypes.c_void_p(best_z.data_ptr()),
-        ctypes.c_void_p(best_id.data_ptr()), n_tiles, tx_n,
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    err = _stage_b_lib().gs_stage_b(
+        ptr(pair_data), ptr(tile_start), ptr(tile_cnt), ptr(subs), ptr(work), ptr(keys),
+        ptr(best_z), ptr(best_id), n_tiles, tx_n, max_subs,
         ctypes.c_void_p(kernels.stream_ptr(pair_data)),
     )
     kernels.check(err, "rasterize_stage_b")
-    stage_b_launches += 1
+    stage_b_calls += 1
     return best_z, best_id
 
 

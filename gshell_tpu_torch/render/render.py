@@ -207,14 +207,11 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params: dict, mat_cfg: MLP
     )
     if idx_c is not None:
         ds = scatter(torch.cat([out.diffuse, out.specular], dim=-1), 6)
-        diffuse_accum, specular_accum = ds[..., 0:3], ds[..., 3:6]
     else:
-        diffuse_accum = out.diffuse.reshape(h, w, 3)
-        specular_accum = out.specular.reshape(h, w, 3)
-
-    if flags.use_denoiser:
-        diffuse_accum = bilateral_denoiser(diffuse_accum, gb_normal, gb_depth, denoiser_sigma)
-        specular_accum = bilateral_denoiser(specular_accum, gb_normal, gb_depth, denoiser_sigma)
+        ds = torch.cat([out.diffuse, out.specular], dim=-1).reshape(h, w, 6)
+    if flags.use_denoiser:  # diffuse and specular share the guides: one call
+        ds = bilateral_denoiser(ds, gb_normal, gb_depth, denoiser_sigma)
+    diffuse_accum, specular_accum = ds[..., 0:3], ds[..., 3:6]
 
     if bsdf in ("white", "diffuse"):
         shaded_col = diffuse_accum * kd_eff

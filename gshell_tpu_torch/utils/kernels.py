@@ -67,7 +67,8 @@ def build(verbose: bool = False) -> str:
     out_dir = os.path.join(BUILD_ROOT, _digest(srcs))
     so = os.path.join(out_dir, "libgshell_kernels.so")
     if os.path.exists(so):
-        build_seconds = 0.0
+        if build_seconds is None:  # built by an earlier process
+            build_seconds = 0.0
         return so
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
@@ -91,9 +92,11 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         handle = ctypes.CDLL(build())
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        handle.gs_stage_b.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]
+        handle.gs_stage_b.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
         handle.gs_stage_b.restype = i32
-        handle.gs_bilateral.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, f32, i32, vp]
+        handle.gs_stage_b_layout.argtypes = [vp, vp]
+        handle.gs_stage_b_layout.restype = None
+        handle.gs_bilateral.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, vp]
         handle.gs_bilateral.restype = i32
         _lib = handle
     return _lib

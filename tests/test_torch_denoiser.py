@@ -100,3 +100,39 @@ def test_denoiser_value_and_colour_grad_match_jax_vjp():
     assert_close(out_t, out_j, **TOL, what="denoised")
     assert_close(c.grad, g_col_j, **TOL_SIGNED, what="d/dcol")
     assert n_t.grad is None and z_t.grad is None  # weights are constants
+
+
+def test_six_channel_denoiser_matches_two_jax_calls():
+    """The renderer denoises diffuse and specular, which share their guides,
+    in one 6-channel call: value and colour gradient against two JAX
+    ``bilateral_denoiser`` calls of 3 channels each."""
+    col, nrm, zdz = _inputs(4)
+    col2 = np.random.default_rng(6).uniform(size=(H, W, 3)).astype(np.float32) * 2.0
+    g = np.random.default_rng(7).normal(size=(H, W, 6)).astype(np.float32)
+    sigma = 2.0
+    outs, grads = [], []
+    for c, gc in ((col, g[..., 0:3]), (col2, g[..., 3:6])):
+        out_j, vjp = jax.vjp(lambda x: jd.bilateral_denoiser(x, jnp.asarray(nrm), jnp.asarray(zdz),
+                                                             jnp.asarray(sigma), R), jnp.asarray(c))
+        outs.append(np.asarray(out_j))
+        grads.append(np.asarray(vjp(jnp.asarray(gc))[0]))
+    c6 = t(np.concatenate([col, col2], -1), True)
+    out_t = td.bilateral_denoiser(c6, t(nrm), t(zdz), sigma, R)
+    out_t.backward(t(g))
+    assert out_t.shape == (H, W, 6)
+    assert_close(out_t, np.concatenate(outs, -1), **TOL, what="denoised")
+    assert_close(c6.grad, np.concatenate(grads, -1), **TOL_SIGNED, what="d/dcol")
+
+
+def test_six_channel_stencil_equals_two_three_channel_calls():
+    """Each channel sums its taps alone: one 6-channel call equals two
+    3-channel calls bit for bit, forward and transposed."""
+    col, nrm, zdz = _inputs(5)
+    col2 = np.random.default_rng(8).normal(size=(H, W, 3)).astype(np.float32)
+    for from_tap in (False, True):
+        c6, w6 = td.bilateral_accumulate(t(np.concatenate([col, col2], -1)), t(nrm), t(zdz), 1.3, R,
+                                         denom_from_tap=from_tap)
+        a, wa = td.bilateral_accumulate(t(col), t(nrm), t(zdz), 1.3, R, denom_from_tap=from_tap)
+        b, _ = td.bilateral_accumulate(t(col2), t(nrm), t(zdz), 1.3, R, denom_from_tap=from_tap)
+        assert torch.equal(c6, torch.cat([a, b], -1))
+        assert torch.equal(w6, wa)

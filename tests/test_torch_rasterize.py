@@ -22,6 +22,7 @@ import torch
 from gshell_tpu.ops import rasterize as jr
 from gshell_tpu.ops.math import lookat, perspective, xfm_points
 from gshell_tpu_torch.ops import rasterize as tr
+from gshell_tpu_torch.utils.synthetic import crowded_tile_mesh
 from torch_parity import assert_close, n, t
 
 torch.set_num_threads(1)
@@ -44,11 +45,9 @@ def _check_z(z_port, z_jax):
     assert dz.max() <= 1e-5, f"max |dz| {dz.max()}"
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_stage_b_plain_matches_pallas(seed):
-    v_clip, faces = _mesh(seed)
-    bins = tr.bin_pairs(t(v_clip), t(faces).long(), (H, W))
-    bz, bid = tr.stage_b_plain(bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
+def _pallas_stage_b(bins):
+    """JAX ``_stage_b_pallas`` in interpret mode on the port's pair list:
+    (best_z, best_id with -1 = miss) as numpy."""
     # the Pallas kernel walks (C, 16, 128) super-chunks of the same pairs
     pd = n(bins.pair_data)
     kcp = 128
@@ -58,13 +57,82 @@ def test_stage_b_plain_matches_pallas(seed):
         jnp.asarray(pd), jnp.asarray(n(bins.tile_start)), jnp.asarray(n(bins.tile_cnt)),
         bins.n_tiles, bins.tx_n, 16, kcp, interpret=True,
     )
-    jid = np.asarray(jidf).astype(np.int64) - 1
+    return np.asarray(jz), np.asarray(jidf).astype(np.int64) - 1
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stage_b_plain_matches_pallas(seed):
+    v_clip, faces = _mesh(seed)
+    bins = tr.bin_pairs(t(v_clip), t(faces).long(), (H, W))
+    bz, bid = tr.stage_b_plain(bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
+    jz, jid = _pallas_stage_b(bins)
     pid = n(bid).astype(np.int64)
     assert (pid >= 0).sum() > 500, "mesh covers too few pixels to test"
     same = pid == jid
     assert same.mean() >= 0.999, f"ids agree on {same.mean():.5f} of pixels"
     hit = same & (pid >= 0)
     _check_z(n(bz)[hit], np.asarray(jz)[hit])
+
+
+def _crowded_bins(seed):
+    v_clip, faces = crowded_tile_mesh(H, seed=seed)
+    bins = tr.bin_pairs(v_clip, faces, (H, W))
+    assert int(bins.tile_cnt[bins.tx_n + 1]) >= 4 * tr.STAGE_B_SUB  # the crowded tile
+    return bins, faces.shape[0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stage_b_split_merge_is_exact(seed):
+    """The kernel's schedule (sub-segments of STAGE_B_SUB pairs, 64-bit key
+    merge with atomicMin semantics) on one crowded tile with exact depth
+    ties and ±0.0 depths: ids identical to the plain version and to the JAX
+    Pallas kernel in interpret mode; depths equal to the plain version's.
+    The mesh is exact in float32, so FMA contraction in XLA moves nothing."""
+    bins, n_faces = _crowded_bins(seed)
+    args = (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
+    sz, sid = tr.stage_b_split_merge(*args)
+    assert int((tr.stage_b_schedule(bins.tile_start, bins.tile_cnt)[:, 3] >= 4).sum()) >= 4
+    pz, pid = tr.stage_b_plain(*args)
+    jz, jid = _pallas_stage_b(bins)
+    assert torch.equal(sid, pid)
+    np.testing.assert_array_equal(n(sid).astype(np.int64), jid)
+    hit = n(pid) >= 0
+    assert hit.all()
+    np.testing.assert_array_equal(n(sz)[hit], n(pz)[hit])
+    np.testing.assert_array_equal(n(sz)[hit], jz[hit])
+    crowd = n(sid)[bins.tx_n + 1]
+    assert ((crowd == 0) | (crowd == 1)).sum() > 50  # the +0.0 sheet wins its pixels
+    assert (crowd >= n_faces - 2).sum() == 0  # never its -0.0 duplicate
+
+
+@pytest.mark.parametrize("sub", [tr.STAGE_B_SUB, 7])
+def test_stage_b_schedule_covers_every_pair_once(sub):
+    bins, _ = _crowded_bins(2)
+    live = tr.stage_b_schedule(bins.tile_start, bins.tile_cnt, sub)
+    assert live.shape[0] <= tr.stage_b_max_subs(bins.n_tiles, bins.pair_data.shape[0], sub)
+    assert (live[1:, 0] >= live[:-1, 0]).all()  # tiles in order
+    assert int(live[:, 2].max()) <= sub and int(live[:, 2].min()) >= 1
+    covered = torch.zeros(bins.pair_data.shape[0], dtype=torch.int64)
+    for tile, first, cnt, nsub in live.tolist():
+        covered[first:first + cnt] += 1
+        assert nsub == -(-int(bins.tile_cnt[tile]) // sub)
+    want = torch.zeros_like(covered)
+    for s, c in zip(bins.tile_start.tolist(), bins.tile_cnt.tolist()):
+        want[s:s + c] = 1
+    assert torch.equal(covered, want)
+    assert (live[:, 3] > 1).any() and (live[:, 3] == 1).any()
+
+
+def test_stage_b_keys_order_z_then_id():
+    z = torch.tensor([-1.0, -0.5, -0.0, 0.0, 1e-30, 0.25, 1.0, 0.25, -0.0], dtype=torch.float32)
+    ids = torch.tensor([9, 3, 7, 2, 0, 5, 1, 4, 1], dtype=torch.int32)
+    keys = tr.pack_key(z, ids)
+    order = sorted(range(len(z)), key=lambda i: (float(z[i]), int(ids[i])))
+    assert torch.argsort(keys).tolist() == order
+    uz, uid = tr.unpack_key(keys)
+    assert torch.equal(uz, z) and torch.equal(uid, ids)  # -0.0 comes back as +0.0 (== -0.0)
+    mz, mid = tr.unpack_key(torch.tensor([torch.iinfo(torch.int64).max]))
+    assert float(mz) == float(torch.tensor(3.4e38)) and int(mid) == -1
 
 
 def test_rasterize_tiled_matches_jax_pallas_backend():
