@@ -21,10 +21,22 @@ Runs, in order:
   6. the slice: Reconstructor at the working point (512², tet grid 64,
      n_samples 8, batch 2, MLP SDF + eikonal 16384, mesh-splat shadows,
      shade_budget 0.5, denoiser on, default hash grid), 1000 SDF pretrain
-     steps, state step 1000 (shadows and sigma = 2 live), five train steps on
-     a synthetic disk target; losses finite, faces > 0, no raster drops, and
-     exactly 2 stage-B launches (three CUDA kernels each: schedule, test,
-     unpack) and 4 denoiser launches per step.
+     steps, state step 1000 (shadows and sigma = 2 live), three train steps
+     on a synthetic disk target; losses finite, faces > 0, no raster drops,
+     and exactly 2 stage-B launches (three CUDA kernels each: schedule, test,
+     unpack) and 4 denoiser launches per step;
+  7. the command-line path at the full width of the skirt quality config
+     (configs/synthetic_skirt_512_shadowed.json: 512², tet grid 96,
+     n_samples 8, batch 2, 64 shadowed ground-truth views): the port's
+     generator writes the skirt OBJ; ``train_gshell.main`` trains 2
+     iterations (save_interval 2), then resumes from that snapshot to 4;
+     ``eval_reconstruction.main`` measures 16 held-out views and the
+     Chamfer-L2.  Losses, PSNR and Chamfer finite, faces > 0, no raster
+     drops, the OBJ has faces, the resumed run starts at iteration 2, and
+     both kernels launched in the ground-truth pre-render, in training and
+     in eval.  Prints the pre-render time per view, s/step and peak memory
+     at grid 96, n_valid_tets / n_faces, the splat coverage, and the eval's
+     time, PSNR and Chamfer, each beside the card.
 
 Prints a JSON line of per-kernel results (with ``bound_ms``, the least time
 the card could take for the same work, see ``_bound_ms``), the nvidia-smi
@@ -40,8 +52,11 @@ import sys
 import time
 
 RES, GRID, SPP, BATCH = 512, 64, 8, 2
-N_STEPS = 5
+N_STEPS = 3
 SEED = 0
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_CONFIG = os.path.join(ROOT, "configs", "synthetic_skirt_512_shadowed.json")
+CLI_OUT = os.path.join(ROOT, "out", "chip_smoke")  # gitignored
 
 
 # Peak rates of one NVIDIA H100 SXM at its 700 W limit: 67 TFLOP/s FP32
@@ -322,6 +337,99 @@ def probe_view(rec, state, draws, target, mesh, faces_c, v_nrm) -> dict:
                        update_pdf(state.light_base), rec.flags._replace(use_denoiser=False))
 
 
+def _finite(x) -> bool:
+    return x is not None and math.isfinite(float(x))
+
+
+def cli_path(smi: str) -> dict:
+    """Phase 7: generator → ``train_gshell.main`` (2 iterations, then resumed
+    to 4) → ``eval_reconstruction.main`` at the skirt config's full width.
+    The launch counts are set to 0 before each entry point and read after
+    it; the entry points report each of their phases.  Returns the launches
+    per path; raises on any failed check."""
+    import shutil
+
+    import torch
+
+    from gshell_tpu_torch import eval_reconstruction, train_gshell
+    from gshell_tpu_torch.ops import denoiser as dn
+    from gshell_tpu_torch.ops import rasterize as rz
+    from gshell_tpu_torch.train.setup import kernel_launches
+    from gshell_tpu_torch.utils.synthetic_gt import skirt, write_obj
+
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    os.makedirs(CLI_OUT)
+    obj = os.path.join(CLI_OUT, "skirt.obj")
+    write_obj(obj, *skirt())
+    with open(CLI_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["save_interval"] = 2
+    cfg_path = os.path.join(CLI_OUT, "skirt_smoke.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    run = os.path.join(CLI_OUT, "run")
+    common = ["--config", cfg_path, "--ref-mesh", obj, "--out-dir", run, "--log-interval", "1"]
+
+    def counted(fn, argv):
+        rz.stage_b_calls, dn.bilateral_launches = 0, 0
+        t0 = time.time()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        out["seconds"] = time.time() - t0
+        for k, v in kernel_launches().items():
+            if sum(p[k] for p in out["launches"].values()) != v:
+                raise RuntimeError(f"{fn.__module__}: {k} launches by phase {out['launches']} do not sum to {v}")
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    first = counted(train_gshell.main, common + ["--iter", "2"])
+    resumed = counted(train_gshell.main, common + ["--iter", "4", "--resume"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = counted(eval_reconstruction.main, [
+        "--state", os.path.join(run, "state.pt"), "--config", cfg_path, "--synthetic-ref-mesh", obj,
+        "--gt-mesh", obj, "--gt-unit-size", "--n-views", "16", "--out-dir", os.path.join(run, "validate")])
+
+    log = first["log"] + resumed["log"]
+    for e in log:
+        print(f"cli step {e['it']}: total {e['total']:.6f} img {e['img_loss']:.6f} reg {e['reg_loss']:.6f} "
+              f"n_valid_tets {int(e['n_valid_tets'])} n_faces {int(e['n_faces'])} "
+              f"raster_dropped {int(e['raster_dropped'])} px_dropped {int(e['px_dropped'])} "
+              f"splat cells {int(e['splat_cells'])}, {e['splat_samples_per_cell']:.2f} samples/cell, "
+              f"{int(e['splat_singletons'])} singletons | {e['s']:.3f} s/step  [{smi}]")
+    steady = sorted(e["s"] for e in log[1:])
+    with open(os.path.join(run, "mesh_000004.obj")) as f:
+        obj_faces = sum(1 for line in f if line.startswith("f "))
+    gt = first["gt_splat"]
+    print(f"cli ground truth: {first['gt_views']} views at {RES}² in {first['gt_seconds']:.2f} s "
+          f"({first['gt_seconds'] / first['gt_views']:.4f} s/view, mesh load and shadow field included); "
+          f"resumed run {resumed['gt_seconds'] / resumed['gt_views']:.4f} s/view; GT splat "
+          f"{gt['occupied_cells']} cells of {gt['samples']} samples  [{smi}]")
+    print(f"cli train at grid 96: steps {[round(e['s'], 3) for e in log]} s, median after the first "
+          f"{steady[len(steady) // 2]:.3f} s/step; peak memory {peak:.2f} GiB (both train runs, "
+          f"ground truth and SDF pretrain included); resumed at iter {resumed['start_it']}; "
+          f"final OBJ {obj_faces} faces  [{smi}]")
+    print(f"cli eval: {ev['seconds']:.2f} s for 16 held-out views + Chamfer; PSNR {ev.get('psnr')} dB, "
+          f"MSE {ev.get('mse')}, Chamfer-L2 {ev.get('chamfer')}  [{smi}]")
+    launches = {"gt_train": first["launches"]["dataset"], "gt_resumed": resumed["launches"]["dataset"],
+                "train": first["launches"]["train"], "train_resumed": resumed["launches"]["train"],
+                "gt_eval": ev["launches"]["ground_truth"], "eval": ev["launches"]["synthetic"]}
+    print(f"cli launches by path: {json.dumps(launches)}")
+
+    bad = [f"step {e['it']} {k}" for e in log for k in ("total", "img_loss", "reg_loss") if not _finite(e[k])]
+    bad += [f"step {e['it']}: n_faces {e['n_faces']}, raster_dropped {e['raster_dropped']}"
+            for e in log if e["n_faces"] <= 0 or e["raster_dropped"] != 0]
+    if resumed["start_it"] != 2 or [e["it"] for e in resumed["log"]] != [2, 3]:
+        bad.append(f"resumed run started at {resumed['start_it']} ({[e['it'] for e in resumed['log']]})")
+    if obj_faces <= 0 or resumed["final_faces"] <= 0:
+        bad.append(f"final OBJ has {obj_faces} faces")
+    if not (_finite(ev.get("psnr")) and _finite(ev.get("chamfer"))):
+        bad.append(f"eval PSNR {ev.get('psnr')}, Chamfer {ev.get('chamfer')}")
+    bad += [f"{path}: {k} not launched" for path, c in launches.items() for k, v in c.items() if v <= 0]
+    if bad:
+        raise RuntimeError("phase 7 (command-line path) failed: " + "; ".join(bad))
+    return launches
+
+
 def card_name() -> str:
     """``nvidia-smi``'s name and power limit of the first card."""
     return subprocess.run(
@@ -474,11 +582,18 @@ def main() -> int:
         if sb != BATCH or bl != 2 * BATCH:
             raise RuntimeError(f"step {i}: launches stage_b {sb} (want {BATCH}), "
                                f"bilateral {bl} (want {2 * BATCH})")
-    launches = {"rasterize_stage_b": rz.stage_b_calls, "bilateral_accumulate": dn.bilateral_launches}
+    by_path = {"train_step": {"rasterize_stage_b": rz.stage_b_calls,
+                              "bilateral_accumulate": dn.bilateral_launches}}
+
+    # ---- phase 7: the command-line path at full width --------------------------
+    del rec, state, draws, target, geo, mesh, faces_c, fvalid_c, v_nrm, bufs, bins, crowd
+    torch.cuda.empty_cache()
+    by_path.update(cli_path(smi))
     for r in results:
-        r["launches"] = launches[r["name"]]
-        if r["launches"] == 0:
-            raise RuntimeError(f"{r['name']} was not launched by the train step")
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        if min(r["launches_by_path"].values()) == 0:
+            raise RuntimeError(f"{r['name']} was not launched on every path: {r['launches_by_path']}")
 
     print(json.dumps({"kernels": results}))
     print(smi)

@@ -8,7 +8,7 @@ sign-consistency BCE, and the shading / material regularizers."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +45,17 @@ class GeometryConfig:
     capacity_safety: float = 1.0
     max_tets: Optional[int] = None
     max_verts: Optional[int] = None
+
+
+class CutMesh(NamedTuple):
+    """An extracted cut mesh: faces compacted to the front of a max_tets
+    buffer, ``face_valid`` marking the first ``n_faces``."""
+    verts: torch.Tensor
+    faces: torch.Tensor
+    face_valid: torch.Tensor
+    n_faces: torch.Tensor
+    v_nrm: torch.Tensor
+    msdf: torch.Tensor
 
 
 class GShellGeometry:
@@ -119,16 +130,28 @@ class GShellGeometry:
 
     def splat_occupancy(self, draws, verts, faces, face_valid, res: int = 65,
                         n_samples: int = 1 << 17):
-        """0/1 occupancy lattice of the cut surface over the geometry box."""
+        """0/1 occupancy lattice of the cut surface over the geometry box →
+        (occ, aabb_min, aabb_size, coverage).  ``coverage`` says how well the
+        fixed sample count covers the surface: ``splat_cells`` occupied
+        cells, ``splat_samples_per_cell`` their mean sample count and
+        ``splat_singletons`` the cells only one sample reached (by the
+        Good-Turing estimate, singletons / samples is the share of the
+        surface that lies in cells no sample reached)."""
         half = 0.5 * self.cfg.scale * np.asarray(self.cfg.boxscale, np.float32)
         amin = torch.as_tensor(-half, device=self.device)
         asz = torch.as_tensor(2 * half, device=self.device)
         with torch.no_grad():
             pts = sample_surface(draws, verts.detach(), faces, n_samples, face_mask=face_valid)
             ijk = torch.clamp(((pts - amin) / asz * (res - 1)).to(torch.int64), 0, res - 1)
-            occ = torch.zeros((res, res, res), dtype=torch.float32, device=self.device)
-            occ[ijk[:, 0], ijk[:, 1], ijk[:, 2]] = 1.0
-        return occ, tuple((-half).tolist()), tuple((2 * half).tolist())
+            counts = torch.bincount((ijk[:, 0] * res + ijk[:, 1]) * res + ijk[:, 2], minlength=res**3)
+            occ = (counts > 0).to(torch.float32).reshape(res, res, res)
+            cells = occ.sum()
+            coverage = {
+                "splat_cells": cells,
+                "splat_samples_per_cell": n_samples / torch.clamp(cells, min=1.0),
+                "splat_singletons": (counts == 1).sum(),
+            }
+        return occ, tuple((-half).tolist()), tuple((2 * half).tolist()), coverage
 
     @torch.no_grad()
     def clamp_params(self, params: dict) -> None:
@@ -144,6 +167,12 @@ class GShellGeometry:
         faces_c, fvalid_c, n_faces = compact_faces(mesh.faces, mesh.face_valid, cap=self.extractor.max_tets)
         return mesh, faces_c, fvalid_c, n_faces, auto_normals(mesh.verts, faces_c, fvalid_c)
 
+    @torch.no_grad()
+    def get_mesh(self, params: dict) -> CutMesh:
+        """The cut mesh without gradients, faces compacted to the front."""
+        mesh, faces_c, fvalid_c, n_faces, v_nrm = self.extract(params)
+        return CutMesh(mesh.verts, faces_c, fvalid_c, n_faces, v_nrm, mesh.msdf)
+
     # ---------------- losses ----------------
     def tick(self, draws, params: dict, mat_params: dict, mat_cfg, light, target: dict,
              iteration: int, flags: RenderFlags, image_loss_fn: Callable,
@@ -155,9 +184,10 @@ class GShellGeometry:
         cfg = self.cfg
         mesh, faces_c, fvalid_c, n_faces, v_nrm = self.extract(params)
 
-        visibility = None
+        visibility, coverage = None, {}
         if use_shadows:
-            occ, amin, asz = self.splat_occupancy(draws.child("splat"), mesh.verts, faces_c, fvalid_c)
+            occ, amin, asz, coverage = self.splat_occupancy(draws.child("splat"), mesh.verts, faces_c,
+                                                            fvalid_c)
             visibility = make_shadow_field(occ, amin, asz, ko=shadow_ko)
 
         views = [
@@ -239,5 +269,6 @@ class GShellGeometry:
             "eik_loss": eik_loss,
             "msdf_reg": msdf_reg,
             "shading_reg": shading_reg,
+            **coverage,
         }
         return img_loss, depth_loss, reg_loss, aux

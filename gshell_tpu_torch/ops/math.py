@@ -96,6 +96,11 @@ def rgb_to_srgb(f):
     return conv(f)
 
 
+def mse_to_psnr(mse):
+    """PSNR in dB of a mean squared error on [0, 1] images."""
+    return -10.0 * torch.log10(torch.clamp(torch.as_tensor(mse), min=1e-10))
+
+
 def dir_to_latlong_uv(d):
     """Direction → lat-long uv (``u = atan2(x, -z)/2π + 0.5``); the clip
     stays 1e-6 inside ±1 so the arccos gradient stays finite."""
@@ -138,6 +143,12 @@ def lookat(eye, at, up):
     m[:3, :3] = rot
     m[:3, 3] = -rot @ eye
     return m
+
+
+def rotate_x(a: float, device=None):
+    s, c = math.sin(a), math.cos(a)
+    return torch.tensor([[1, 0, 0, 0], [0, c, -s, 0], [0, s, c, 0], [0, 0, 0, 1]],
+                        dtype=torch.float32, device=device)
 
 
 def xfm_points(points, matrix):

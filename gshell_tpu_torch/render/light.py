@@ -33,6 +33,13 @@ def update_pdf(base) -> EnvLight:
     return EnvLight(base=base, pdf=pdf, rows=rows, cols=cols)
 
 
+def create_trainable_env_rnd(draws, base_res: int = 512, scale: float = 0.5, bias: float = 0.25,
+                             device=None) -> EnvLight:
+    """Uniform-noise light ``U(0, 1)·scale + bias``; draws ``base``."""
+    base = draws.uniform("base", (base_res, base_res, 3)).to(device) * scale + bias
+    return update_pdf(base)
+
+
 def _texel(uv, h: int, w: int):
     x = torch.clamp((uv[..., 0] * w).to(torch.int64), 0, w - 1)
     y = torch.clamp((uv[..., 1] * h).to(torch.int64), 0, h - 1)

@@ -12,6 +12,7 @@ off for cuBLAS and cuDNN when a :class:`Reconstructor` is built."""
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -29,6 +30,7 @@ class TrainConfig:
     lr_mat: float = 0.005
     lr_lgt: Optional[float] = None  # default lr_pos·6
     loss: str = "logl1"
+    iters: int = 5000
     batch: int = 2
     shadow_ramp_iters: int = 1000
     use_shadows: bool = True
@@ -152,3 +154,35 @@ class Reconstructor:
             "nonfinite_grads": bad,
             **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()},
         }
+
+
+def save_state(state: TrainState, draws, path: str, **extra) -> None:
+    """Snapshot for ``load_state``: parameters, the three Adam states and
+    their schedules, the step, the state of ``draws``' generator, and
+    ``extra`` (small picklable values such as a data stream's state).
+    Written to a temporary file and moved over ``path``, so a run killed
+    mid-save leaves the previous snapshot whole."""
+    record = {
+        "params_geo": state.params_geo, "params_mat": state.params_mat,
+        "light_base": state.light_base,
+        "optimizers": [o.state_dict() for o in state.optimizers],
+        "schedulers": [s.state_dict() for s in state.schedulers],
+        "step": state.step, "draws": draws.gen.get_state(), "extra": extra,
+    }
+    tmp = path + ".tmp"
+    with torch.no_grad():
+        torch.save(record, tmp)
+    os.replace(tmp, path)
+
+
+def load_state(rec: Reconstructor, path: str, draws=None):
+    """→ (TrainState on ``rec``'s device, the ``extra`` saved with it); sets
+    ``draws``' generator to where the snapshot left it, when given."""
+    record = torch.load(path, map_location="cpu", weights_only=True)
+    state = rec.make_state(record["params_geo"], record["params_mat"], record["light_base"],
+                           step=int(record["step"]))
+    for obj, sd in zip(state.optimizers + state.schedulers, record["optimizers"] + record["schedulers"]):
+        obj.load_state_dict(sd)
+    if draws is not None:
+        draws.gen.set_state(record["draws"])
+    return state, record["extra"]

@@ -106,3 +106,55 @@ def test_default_capacities_equal_the_jax_package(res, safety):
     g = jgrid.build_tet_grid(res, build_topology=False)
     assert tgrid.default_capacities(res, g.n_tets, g.n_edges, safety) == \
         jgrid.default_capacities(res, g.n_tets, g.n_edges, safety)
+
+
+_GUARDED_MAIN = _GUARDED_IMPORT.split("import gshell_tpu_torch")[0] + r"""
+import runpy
+sys.argv = [sys.argv[1]] + sys.argv[2:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "gshell_tpu"))
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("argv", [
+    ["gshell_tpu_torch.train_gshell", "--help"],
+    ["gshell_tpu_torch.eval_reconstruction", "--help"],
+    ["gshell_tpu_torch.utils.synthetic_gt", "sphere", "{tmp}/sphere.obj"],
+])
+def test_entry_points_run_as_main_without_jax(tmp_path, argv):
+    """``python -m`` of each entry point of the port, under the import guard."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    args = [a.format(tmp=tmp_path) for a in argv]
+    out = subprocess.run([sys.executable, "-c", _GUARDED_MAIN] + args, cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.rstrip().endswith("ok"), out.stdout
+
+
+def _make_synthetic_gt_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("make_synthetic_gt",
+                                                  os.path.join(ROOT, "tools", "make_synthetic_gt.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", ["sphere", "skirt", "blob"])
+def test_synthetic_gt_copy_equals_the_original(tmp_path, shape):
+    from gshell_tpu_torch.utils import synthetic_gt
+
+    orig = _make_synthetic_gt_module()
+    (va, fa), (vb, fb) = getattr(synthetic_gt, shape)(), getattr(orig, shape)()
+    assert va.dtype == vb.dtype and fa.dtype == fb.dtype
+    np.testing.assert_array_equal(va, vb)
+    np.testing.assert_array_equal(fa, fb)
+    synthetic_gt.write_obj(str(tmp_path / "a.obj"), va, fa)
+    orig.write_obj(str(tmp_path / "b.obj"), vb, fb)
+    assert (tmp_path / "a.obj").read_bytes() == (tmp_path / "b.obj").read_bytes()
