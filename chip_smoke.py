@@ -34,7 +34,10 @@ Runs, in order:
      Chamfer-L2.  Losses, PSNR and Chamfer finite, faces > 0, no raster
      drops, the OBJ has faces, the resumed run starts at iteration 2, and
      both kernels launched in the ground-truth pre-render, in training and
-     in eval.  Prints the pre-render time per view, s/step and peak memory
+     in eval.  Each kernel's first and last launch of each entry point (a
+     ground-truth view, the last train step, the last eval view) is held
+     against its plain version on the inputs that path gave it, as in
+     phases 3 and 4.  Prints the pre-render time per view, s/step and peak memory
      at grid 96, n_valid_tets / n_faces, the splat coverage, and the eval's
      time, PSNR and Chamfer, each beside the card.
 
@@ -341,12 +344,105 @@ def _finite(x) -> bool:
     return x is not None and math.isfinite(float(x))
 
 
-def cli_path(smi: str) -> dict:
+def hold_stage_b(label, args, out=None) -> float:
+    """Stage B's kernel output (``out``, or a launch on ``args``) against
+    the plain version on the same pairs: ids identical on every pixel, z
+    identical where hit.  Returns max |z err| over the hit pixels."""
+    import torch
+
+    from gshell_tpu_torch.ops import rasterize as rz
+
+    kz, kid = out if out is not None else rz.rasterize_stage_b(*args)
+    pz, pid = rz.stage_b_plain(*args)
+    n_diff = int((kid != pid).sum())
+    hit = pid >= 0
+    z_diff = int((kz[hit] != pz[hit]).sum())
+    cnt = args[2].float()
+    n_subs = rz.stage_b_schedule(args[1], args[2]).shape[0]
+    print(f"stage B {label}: {int(cnt.sum())} pairs, pairs per tile max {int(cnt.max())} mean "
+          f"{float(cnt.mean()):.2f} p99 {float(torch.quantile(cnt, 0.99)):.1f}, {n_subs} sub-segments; "
+          f"{int(hit.sum())} px hit, {n_diff} ids differ, {z_diff} hit z differ")
+    if n_diff or z_diff:
+        raise RuntimeError(f"stage-B kernel disagrees with the plain version ({label})")
+    return float((kz[hit] - pz[hit]).abs().max()) if hit.any() else 0.0
+
+
+def hold_bilateral(label, args, out) -> float:
+    """The stencil's kernel output ``out`` against the plain version on the
+    same ``args`` (col, nrm, zdz, sigma, r, denom_from_tap), rtol 1e-5 /
+    atol 1e-6.  Returns max |err|."""
+    from gshell_tpu_torch.ops import denoiser as dn
+
+    errs = []
+    for k, p in zip(out, dn.bilateral_plain(*args)):
+        err = (k - p).abs()
+        bad = int((err > 1e-6 + 1e-5 * p.abs()).sum())
+        errs.append(float(err.max()))
+        print(f"denoiser {label} C={args[0].shape[-1]} denom_from_tap={args[5]}: "
+              f"max |err| {errs[-1]:.3e}, {bad} outside rtol 1e-5 / atol 1e-6")
+        if bad:
+            raise RuntimeError(f"bilateral kernel disagrees with the plain version ({label})")
+    return max(errs)
+
+
+class KernelTaps:
+    """While installed, both kernel wrappers keep a copy of the inputs and
+    the outputs of their first and their last launch since the last
+    ``clear()``, so that what a path fed the kernels can be held against
+    the plain versions after its launch counts are read.  The wrappers
+    count their launches as before."""
+
+    def __init__(self):
+        from gshell_tpu_torch.ops import denoiser as dn
+        from gshell_tpu_torch.ops import rasterize as rz
+
+        self.slots = {"rasterize_stage_b": (rz, rz.rasterize_stage_b, self._stage_b_args),
+                      "bilateral_accumulate": (dn, dn.bilateral_accumulate, self._bilateral_args)}
+        self.taps = {}
+
+    @staticmethod
+    def _stage_b_args(pair_data, tile_start, tile_cnt, n_tiles, tx_n):
+        return pair_data, tile_start, tile_cnt, n_tiles, tx_n
+
+    @staticmethod
+    def _bilateral_args(col, nrm, zdz, sigma, r=11, denom_from_tap=False):
+        return col, nrm, zdz, sigma, r, denom_from_tap
+
+    def clear(self):
+        self.taps = {name: [] for name in self.slots}
+
+    def __enter__(self):
+        import torch
+
+        keep = lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x
+        for name, (mod, fn, canon) in self.slots.items():
+            def tapped(*args, _fn=fn, _name=name, _canon=canon, **kw):
+                out = _fn(*args, **kw)
+                tap = (tuple(keep(a) for a in _canon(*args, **kw)), tuple(keep(o) for o in out))
+                seen = self.taps[_name]
+                if seen:
+                    seen[1:] = [tap]
+                else:
+                    seen.append(tap)
+                return out
+            setattr(mod, name, tapped)
+        self.clear()
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, fn, _) in self.slots.items():
+            setattr(mod, name, fn)
+
+
+def cli_path(smi: str):
     """Phase 7: generator → ``train_gshell.main`` (2 iterations, then resumed
     to 4) → ``eval_reconstruction.main`` at the skirt config's full width.
     The launch counts are set to 0 before each entry point and read after
-    it; the entry points report each of their phases.  Returns the launches
-    per path; raises on any failed check."""
+    it; the entry points report each of their phases.  Then each kernel's
+    first and last launch of each entry point (a ground-truth view, a train
+    step's last view backward, an eval view) is held against its plain
+    version on the inputs that path gave it.  Returns (the launches per
+    path, max |err| per kernel); raises on any failed check."""
     import shutil
 
     import torch
@@ -370,7 +466,10 @@ def cli_path(smi: str) -> dict:
     run = os.path.join(CLI_OUT, "run")
     common = ["--config", cfg_path, "--ref-mesh", obj, "--out-dir", run, "--log-interval", "1"]
 
+    taps, held = KernelTaps(), {}
+
     def counted(fn, argv):
+        taps.clear()
         rz.stage_b_calls, dn.bilateral_launches = 0, 0
         t0 = time.time()
         out = fn(argv)
@@ -379,15 +478,35 @@ def cli_path(smi: str) -> dict:
         for k, v in kernel_launches().items():
             if sum(p[k] for p in out["launches"].values()) != v:
                 raise RuntimeError(f"{fn.__module__}: {k} launches by phase {out['launches']} do not sum to {v}")
+        out["taps"] = taps.taps
         return out
 
-    torch.cuda.reset_peak_memory_stats()
-    first = counted(train_gshell.main, common + ["--iter", "2"])
-    resumed = counted(train_gshell.main, common + ["--iter", "4", "--resume"])
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    ev = counted(eval_reconstruction.main, [
-        "--state", os.path.join(run, "state.pt"), "--config", cfg_path, "--synthetic-ref-mesh", obj,
-        "--gt-mesh", obj, "--gt-unit-size", "--n-views", "16", "--out-dir", os.path.join(run, "validate")])
+    def hold(label, run_out):
+        with torch.no_grad():
+            for when, (args, out) in zip(("first", "last"), run_out["taps"]["rasterize_stage_b"]):
+                err = hold_stage_b(f"{label}, {when} launch", args, out)
+                held["rasterize_stage_b"] = max(held.get("rasterize_stage_b", 0.0), err)
+            for when, (args, out) in zip(("first", "last"), run_out["taps"]["bilateral_accumulate"]):
+                err = hold_bilateral(f"{label}, {when} launch", args, out)
+                held["bilateral_accumulate"] = max(held.get("bilateral_accumulate", 0.0), err)
+        del run_out["taps"]
+
+    def train(argv, label):
+        torch.cuda.reset_peak_memory_stats()
+        out = counted(train_gshell.main, common + argv)
+        out["peak"] = torch.cuda.max_memory_allocated() / 2**30  # before the plain versions run
+        hold(label, out)
+        return out
+
+    with taps:
+        first = train(["--iter", "2"], "cli train (ground truth, then train step 1)")
+        resumed = train(["--iter", "4", "--resume"], "cli resumed train (ground truth, then train step 3)")
+        ev = counted(eval_reconstruction.main, [
+            "--state", os.path.join(run, "state.pt"), "--config", cfg_path, "--synthetic-ref-mesh", obj,
+            "--gt-mesh", obj, "--gt-unit-size", "--n-views", "16", "--out-dir", os.path.join(run, "validate")])
+        hold("cli eval (held-out ground truth, then eval view 15)", ev)
+    if set(held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+        raise RuntimeError(f"phase 7 held only {sorted(held)} against the plain versions")
 
     log = first["log"] + resumed["log"]
     for e in log:
@@ -402,11 +521,12 @@ def cli_path(smi: str) -> dict:
     gt = first["gt_splat"]
     print(f"cli ground truth: {first['gt_views']} views at {RES}² in {first['gt_seconds']:.2f} s "
           f"({first['gt_seconds'] / first['gt_views']:.4f} s/view, mesh load and shadow field included); "
-          f"resumed run {resumed['gt_seconds'] / resumed['gt_views']:.4f} s/view; GT splat "
-          f"{gt['occupied_cells']} cells of {gt['samples']} samples  [{smi}]")
+          f"resumed run {resumed['gt_seconds'] / resumed['gt_views']:.4f} s/view; GT splat cells "
+          f"{int(gt['splat_cells'])}, {gt['splat_samples_per_cell']:.2f} samples/cell, "
+          f"{int(gt['splat_singletons'])} singletons  [{smi}]")
     print(f"cli train at grid 96: steps {[round(e['s'], 3) for e in log]} s, median after the first "
-          f"{steady[len(steady) // 2]:.3f} s/step; peak memory {peak:.2f} GiB (both train runs, "
-          f"ground truth and SDF pretrain included); resumed at iter {resumed['start_it']}; "
+          f"{steady[len(steady) // 2]:.3f} s/step; peak memory {max(first['peak'], resumed['peak']):.2f} GiB "
+          f"(each train run, ground truth and SDF pretrain included); resumed at iter {resumed['start_it']}; "
           f"final OBJ {obj_faces} faces  [{smi}]")
     print(f"cli eval: {ev['seconds']:.2f} s for 16 held-out views + Chamfer; PSNR {ev.get('psnr')} dB, "
           f"MSE {ev.get('mse')}, Chamfer-L2 {ev.get('chamfer')}  [{smi}]")
@@ -427,7 +547,7 @@ def cli_path(smi: str) -> dict:
     bad += [f"{path}: {k} not launched" for path, c in launches.items() for k, v in c.items() if v <= 0]
     if bad:
         raise RuntimeError("phase 7 (command-line path) failed: " + "; ".join(bad))
-    return launches
+    return launches, held
 
 
 def card_name() -> str:
@@ -470,20 +590,7 @@ def main() -> int:
 
     # ---- phase 3: stage B kernel vs plain on the real mesh -------------------
     def check_stage_b(label, bins):
-        args = (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
-        kz, kid = rz.rasterize_stage_b(*args)
-        pz, pid = rz.stage_b_plain(*args)
-        n_diff = int((kid != pid).sum())
-        hit = pid >= 0
-        z_diff = int((kz[hit] != pz[hit]).sum())
-        cnt = bins.tile_cnt.float()
-        n_subs = rz.stage_b_schedule(bins.tile_start, bins.tile_cnt).shape[0]
-        print(f"stage B {label}: {int(bins.tile_cnt.sum())} pairs, pairs per tile max "
-              f"{int(cnt.max())} mean {float(cnt.mean()):.2f} p99 {float(torch.quantile(cnt, 0.99)):.1f}, "
-              f"{n_subs} sub-segments; {int(hit.sum())} px hit, {n_diff} ids differ, {z_diff} hit z differ")
-        if n_diff or z_diff:
-            raise RuntimeError(f"stage-B kernel disagrees with the plain version ({label})")
-        return float((kz[hit] - pz[hit]).abs().max()) if hit.any() else 0.0
+        return hold_stage_b(label, (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n))
 
     with torch.no_grad():
         mesh, faces_c, fvalid_c, n_faces, v_nrm = geo.extract(state.params_geo)
@@ -588,8 +695,10 @@ def main() -> int:
     # ---- phase 7: the command-line path at full width --------------------------
     del rec, state, draws, target, geo, mesh, faces_c, fvalid_c, v_nrm, bufs, bins, crowd
     torch.cuda.empty_cache()
-    by_path.update(cli_path(smi))
+    cli_launches, cli_err = cli_path(smi)
+    by_path.update(cli_launches)
     for r in results:
+        r["max_abs_err"] = max(r["max_abs_err"], cli_err[r["name"]])
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if min(r["launches_by_path"].values()) == 0:

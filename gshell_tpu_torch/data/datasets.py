@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..ops import math as gmath
 from ..ops.mesh_ops import auto_normals, sample_surface
-from ..ops.shade import make_shadow_field
+from ..ops.shade import make_shadow_field, splat_lattice
 from ..render.render import render_mesh
 from ..utils.image import load_image
 from ..utils.rng import TorchDraws
@@ -211,7 +211,8 @@ class DatasetMesh(PosedImageDataset):
 
     ``shadows``: render through the swept shadow field of the mesh's own
     occupancy, a splat of 2^17 surface samples over its bounds padded by
-    5 % of the extent, on a ``shadow_grid_res``³ lattice.
+    5 % of the extent, on a ``shadow_grid_res``³ lattice; ``splat_coverage``
+    holds the splat's coverage (:func:`~..ops.shade.splat_lattice`).
 
     ``draws``: the draw source of the render, ``splat/...`` first, then
     ``view{i}/...`` per view; by default a generator on the mesh's device
@@ -239,12 +240,9 @@ class DatasetMesh(PosedImageDataset):
                 lo, hi = v_pos.min(dim=0).values, v_pos.max(dim=0).values
                 pad = 0.05 * torch.max(hi - lo)
                 aabb_min, aabb_size = lo - pad, (hi - lo) + 2 * pad
-                res = shadow_grid_res
-                ijk = torch.clamp(((pts - aabb_min) / aabb_size * (res - 1)).to(torch.int64), 0, res - 1)
-                occ = torch.zeros((res, res, res), dtype=torch.float32, device=dev)
-                occ[ijk[:, 0], ijk[:, 1], ijk[:, 2]] = 1.0
+                occ, coverage = splat_lattice(pts, aabb_min, aabb_size, shadow_grid_res)
             visibility = make_shadow_field(occ, aabb_min.cpu().numpy(), aabb_size.cpu().numpy())
-            self.splat_coverage = {"occupied_cells": int(occ.sum()), "samples": int(pts.shape[0])}
+            self.splat_coverage = {k: v.item() for k, v in coverage.items()}
             shadow_scale = 1.0
 
         rng = np.random.default_rng(seed)

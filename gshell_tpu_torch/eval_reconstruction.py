@@ -36,6 +36,7 @@ from .utils.rng import TorchDraws
 
 PROG = "gshell_tpu_torch.eval_reconstruction"
 SPLAT_SEED, RENDER_SEED, CHAMFER_SEED, HELD_OUT_SEED = 191, 0, 1, 777
+CHAMFER_SAMPLES = 50000 // 4096 * 4096  # surface samples per mesh (49,152)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,8 +52,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp", type=int, default=None,
                    help="n_samples of both the ground-truth and the evaluated render (>= 1; "
                    "default: the config's)")
-    p.add_argument("--chamfer-samples", type=int, default=50000 // 4096 * 4096,
-                   help="surface samples per mesh for the Chamfer distance (default 49152)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     add_bool(p, "--dump-images", help="write per-view [render | reference | 5x diff] triptychs")
     add_bool(p, "--gt-unit-size",
@@ -67,9 +66,8 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
     if args.spp is not None and args.spp < 1:
         p.error(f"--spp must be >= 1 (got {args.spp})")
-    for name in ("n_views", "chamfer_samples"):
-        if getattr(args, name) is not None and getattr(args, name) < 1:
-            p.error(f"--{name.replace('_', '-')} must be >= 1 (got {getattr(args, name)})")
+    if args.n_views is not None and args.n_views < 1:
+        p.error(f"--n-views must be >= 1 (got {args.n_views})")
     device = resolve_device(args.device, PROG)
     flags = load_flags(args.config)
     problems = unported_options(flags)
@@ -135,7 +133,7 @@ def main(argv=None) -> dict:
             gt = unit_size(gt)
         cd = chamfer_distance(TorchDraws(torch.Generator(device).manual_seed(CHAMFER_SEED)),
                               mesh.verts, mesh.faces, gt.v_pos, gt.t_pos_idx, mask1=mesh.face_valid,
-                              n_samples=args.chamfer_samples, chunk=min(4096, args.chamfer_samples))
+                              n_samples=CHAMFER_SAMPLES, chunk=min(4096, CHAMFER_SAMPLES))
         results["chamfer"] = float(cd)
         print(f"Chamfer-L2: {results['chamfer']:.6f}", flush=True)
     return results

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..ops.mesh_ops import auto_normals, compact_faces, sample_surface
-from ..ops.shade import make_shadow_field
+from ..ops.shade import make_shadow_field, splat_lattice
 from ..render import regularizer as reg
 from ..render.render import RenderFlags, render_mesh
 from .gshell_tets import GShellTets
@@ -131,26 +131,12 @@ class GShellGeometry:
     def splat_occupancy(self, draws, verts, faces, face_valid, res: int = 65,
                         n_samples: int = 1 << 17):
         """0/1 occupancy lattice of the cut surface over the geometry box →
-        (occ, aabb_min, aabb_size, coverage).  ``coverage`` says how well the
-        fixed sample count covers the surface: ``splat_cells`` occupied
-        cells, ``splat_samples_per_cell`` their mean sample count and
-        ``splat_singletons`` the cells only one sample reached (by the
-        Good-Turing estimate, singletons / samples is the share of the
-        surface that lies in cells no sample reached)."""
+        (occ, aabb_min, aabb_size, coverage), ``coverage`` as
+        :func:`splat_lattice` reports it for the fixed sample count."""
         half = 0.5 * self.cfg.scale * np.asarray(self.cfg.boxscale, np.float32)
-        amin = torch.as_tensor(-half, device=self.device)
-        asz = torch.as_tensor(2 * half, device=self.device)
         with torch.no_grad():
             pts = sample_surface(draws, verts.detach(), faces, n_samples, face_mask=face_valid)
-            ijk = torch.clamp(((pts - amin) / asz * (res - 1)).to(torch.int64), 0, res - 1)
-            counts = torch.bincount((ijk[:, 0] * res + ijk[:, 1]) * res + ijk[:, 2], minlength=res**3)
-            occ = (counts > 0).to(torch.float32).reshape(res, res, res)
-            cells = occ.sum()
-            coverage = {
-                "splat_cells": cells,
-                "splat_samples_per_cell": n_samples / torch.clamp(cells, min=1.0),
-                "splat_singletons": (counts == 1).sum(),
-            }
+            occ, coverage = splat_lattice(pts, -half, 2 * half, res)
         return occ, tuple((-half).tolist()), tuple((2 * half).tolist()), coverage
 
     @torch.no_grad()

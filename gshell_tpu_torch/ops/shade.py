@@ -229,6 +229,27 @@ def _sweep_shadow_group(vol, shifts_u, shifts_v):
     return torch.stack(outs, dim=1)
 
 
+def splat_lattice(pts, aabb_min, aabb_size, res: int = 65):
+    """0/1 occupancy of surface samples ``pts`` (N, 3) binned into a res³
+    lattice over the box → (occ, coverage).  ``coverage`` says how well the
+    samples cover the surface: ``splat_cells`` occupied cells,
+    ``splat_samples_per_cell`` their mean sample count and
+    ``splat_singletons`` the cells only one sample reached (by the
+    Good-Turing estimate, singletons / samples is the share of the surface
+    that lies in cells no sample reached)."""
+    amin = torch.as_tensor(aabb_min, dtype=torch.float32, device=pts.device)
+    asz = torch.as_tensor(aabb_size, dtype=torch.float32, device=pts.device)
+    ijk = torch.clamp(((pts - amin) / asz * (res - 1)).to(torch.int64), 0, res - 1)
+    counts = torch.bincount((ijk[:, 0] * res + ijk[:, 1]) * res + ijk[:, 2], minlength=res**3)
+    occ = (counts > 0).to(torch.float32).reshape(res, res, res)
+    cells = occ.sum()
+    return occ, {
+        "splat_cells": cells,
+        "splat_samples_per_cell": pts.shape[0] / torch.clamp(cells, min=1.0),
+        "splat_singletons": (counts == 1).sum(),
+    }
+
+
 def make_shadow_field(occ_grid, aabb_min, aabb_size, ko: int = 16, t_min_vox: float = 2.0,
                       occlusion_threshold: float = 0.0, max_grid_res: int = 65) -> ShadowField:
     """Sweep an occupancy lattice into K = ko² bit-packed directional

@@ -39,6 +39,7 @@ from .utils.image import save_image
 from .utils.rng import TorchDraws
 
 PROG = "gshell_tpu_torch.train_gshell"
+GT_VIEWS = 64  # views of the synthetic (--ref-mesh FILE.obj) ground truth
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,8 +53,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ref-mesh", dest="ref_mesh", type=str, default=None)
     p.add_argument("--n_samples", type=int, default=None)
     p.add_argument("--log-interval", type=int, default=10)
-    p.add_argument("--gt-views", type=int, default=64,
-                   help="views of the synthetic (--ref-mesh FILE.obj) ground truth (default 64)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     add_bool(p, "--flexicubes", help="FlexiCubes geometry (not yet ported: exits)")
     p.add_argument("--bake-texture", type=int, default=0, metavar="RES",
@@ -69,7 +68,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def make_dataset(flags, rec, device, gt_views: int = 64):
+def make_dataset(flags, rec, device):
     if flags.trainset_path:
         return DatasetDeepFashion(flags.trainset_path, train_res=tuple(flags.train_res), device=device)
     if flags.ref_mesh and os.path.isdir(flags.ref_mesh):
@@ -78,7 +77,7 @@ def make_dataset(flags, rec, device, gt_views: int = 64):
     if flags.ref_mesh and flags.ref_mesh.endswith(".obj"):
         gt_mesh = unit_size(load_obj(flags.ref_mesh, device=device))
         light, mat = gt_light_material(rec.mat_cfg, device)
-        return DatasetMesh(gt_mesh, light, mat, rec.mat_cfg, rec.flags, n_views=gt_views,
+        return DatasetMesh(gt_mesh, light, mat, rec.mat_cfg, rec.flags, n_views=GT_VIEWS,
                            layers=flags.layers, shadows=flags.gt_shadows)
     raise SystemExit(f"{PROG}: need --trainset-path (DeepFashion), --ref-mesh DIR (NeRF) or "
                      "--ref-mesh FILE.obj (synthetic)")
@@ -108,8 +107,8 @@ def main(argv=None) -> dict:
     the ground truth's build time and the kernel launches of each phase."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.gt_views < 1 or args.log_interval < 1:
-        parser.error("--gt-views and --log-interval must be >= 1")
+    if args.log_interval < 1:
+        parser.error("--log-interval must be >= 1")
     device = resolve_device(args.device, PROG)
     flags = load_flags(args.config, iter=args.iter, batch=args.batch, out_dir=args.out_dir,
                        trainset_path=args.trainset_path, ref_mesh=args.ref_mesh,
@@ -128,7 +127,7 @@ def main(argv=None) -> dict:
     rec = reconstructor_from_flags(flags, device)
 
     c0, t0 = kernel_launches(), time.time()
-    ds = make_dataset(flags, rec, device, args.gt_views)
+    ds = make_dataset(flags, rec, device)
     _sync(device)
     summary = {"gt_seconds": time.time() - t0, "gt_views": len(ds), "launches": {"dataset": launches_since(c0)}}
     if getattr(ds, "splat_coverage", None):

@@ -32,7 +32,7 @@ from torch_parity import _draw, n
 TINY = {"iter": 4, "save_interval": 2, "train_res": [64, 64], "batch": 1, "learning_rate": [0.03, 0.005],
         "background": "white", "denoiser": "bilateral", "n_samples": 2, "gshell_grid": 16, "mesh_scale": 1.4,
         "use_sdf_mlp": True, "shade_budget": 0.5, "gt_shadows": True, "n_freq": 4, "d_hidden": 32,
-        "n_hidden": 2, "skip_in": [1], "sdf_mlp_pretrain_steps": 100, "boxscale": [1, 1, 1],
+        "n_hidden": 2, "skip_in": [1], "sdf_mlp_pretrain_steps": 10, "boxscale": [1, 1, 1],
         "aabb": [-1, -1, -1, 1, 1, 1]}
 
 
@@ -56,18 +56,21 @@ def files(tmp_path_factory):
 
 def _train_argv(files, out, *extra):
     return ["--config", str(files / "tiny.json"), "--ref-mesh", str(files / "sphere.obj"), "--out-dir",
-            str(files / out), "--device", "cpu", "--gt-views", "4", "--log-interval", "1", *extra]
+            str(files / out), "--device", "cpu", "--log-interval", "1", *extra]
 
 
 @pytest.fixture(scope="module")
 def runs(files):
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(train_gshell, "GT_VIEWS", 4)  # a module-scoped fixture cannot take ``monkeypatch``
     try:
         straight = train_gshell.main(_train_argv(files, "straight"))
         first = train_gshell.main(_train_argv(files, "split", "-i", "2", "--snapshot-images", "no"))
         resumed = train_gshell.main(_train_argv(files, "split", "--resume"))
     finally:
+        mp.undo()
         torch.use_deterministic_algorithms(prev)
     return straight, first, resumed
 
@@ -84,7 +87,9 @@ def test_cli_writes_mesh_state_and_probe(files, runs):
     assert (out / "mesh_000002.obj").exists() and (out / "img_000002.png").exists()
     assert load_hdr(str(out / "probe.hdr")).shape == (512, 512, 3)
     assert torch.load(str(out / "state.pt"), weights_only=True)["step"] == 4
-    assert straight["gt_views"] == 4 and straight["gt_splat"]["samples"] == 1 << 17
+    gt = straight["gt_splat"]
+    assert straight["gt_views"] == 4 and gt["splat_cells"] > 0 and 0 <= gt["splat_singletons"] <= gt["splat_cells"]
+    assert gt["splat_cells"] * gt["splat_samples_per_cell"] == pytest.approx(1 << 17)
 
 
 def test_cli_resume_equals_a_straight_run_bit_for_bit(files, runs):
@@ -101,12 +106,13 @@ def test_cli_resume_equals_a_straight_run_bit_for_bit(files, runs):
     assert sa["schedulers"] == sb["schedulers"] and sa["extra"] == sb["extra"]
 
 
-def test_eval_writes_metrics_psnr_and_chamfer(files, runs):
+def test_eval_writes_metrics_psnr_and_chamfer(files, runs, monkeypatch):
+    monkeypatch.setattr(eval_reconstruction, "CHAMFER_SAMPLES", 2048)
     out = files / "validate"
     res = eval_reconstruction.main([
         "--state", str(files / "straight" / "state.pt"), "--config", str(files / "tiny.json"),
         "--synthetic-ref-mesh", str(files / "sphere.obj"), "--gt-mesh", str(files / "sphere.obj"),
-        "--gt-unit-size", "--n-views", "2", "--chamfer-samples", "2048", "--out-dir", str(out),
+        "--gt-unit-size", "--n-views", "2", "--out-dir", str(out),
         "--device", "cpu", "--dump-images", "1"])
     lines = (out / "metrics.txt").read_text().splitlines()
     assert lines[0] == "ID, MSE, PSNR" and lines[-1].startswith("AVERAGES:") and len(lines) == 4
