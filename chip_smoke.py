@@ -40,6 +40,19 @@ Runs, in order:
      phases 3 and 4.  Prints the pre-render time per view, s/step and peak memory
      at grid 96, n_valid_tets / n_faces, the splat coverage, and the eval's
      time, PSNR and Chamfer, each beside the card.
+  8. the diffusion path at the full width of configs/diffusion_upper_occgrid.json
+     (the UNet3D defaults: 411M parameters, grids 128³×4 and 256³, tet
+     resolution 64), through the port's entry points into the gitignored
+     ``out/chip_smoke/diffusion/``: four synthetic open shapes are baked
+     (``bake_grids.main``) and ``decode(bake(·))`` is held against the
+     extractor (equal faces, vertices within 2e-2); a small UNet3D is held
+     card vs CPU (``DIFF_SMALL_LIMITS``); ``main_diffusion.main`` trains 3
+     iterations at batch 1 × grad-acc 2 in IEEE float32 with a snapshot, a
+     second call resumes at the saved step, a third samples 10 DDIM steps
+     with the EMA weights; ``eval_gmeshdiffusion.main`` decodes the sample
+     and a baked grid, which must give the round trip's face count.  Prints
+     s/step, peak memory, the snapshot, the analytic FLOPs and TFLOP/s, and
+     a ``{"diffusion": ...}`` JSON line.  This path launches neither kernel.
 
 Prints a JSON line of per-kernel results (with ``bound_ms``, the least time
 the card could take for the same work, see ``_bound_ms``), the nvidia-smi
@@ -550,6 +563,245 @@ def cli_path(smi: str):
     return launches, held
 
 
+# Phase 8: G-MeshDiffusion at the full width of configs/diffusion_upper_occgrid.json
+# (the UNet3DConfig defaults): tet resolution 64, grids 128³×4 and 256³.
+DIFF_RES = 64
+DIFF_SHAPES = 4
+DIFF_OUT = os.path.join(ROOT, "out", "chip_smoke", "diffusion")  # gitignored
+# The JAX package's parameter count at the default config
+# (tests/test_torch_unet3d.py holds both packages to it).
+UNET_PARAMS = 411_065_605
+DIFF_CUTS = ["batch 1 x grad-acc 2 per step in place of 8 x 4 (one card, not eight)",
+             "3 iterations, then 1 resumed, in place of 2.4M",
+             "10 DDIM steps and 1 sample in place of 100 and 8",
+             "4 synthetic open ellipsoids (direct SDF + tilted mSDF plane) in place of baked DeepFashion"]
+# Card vs CPU at a small width (UNet3D base 16, ch_mult (1, 2), grid 16, TF32
+# off, deterministic cuDNN): the outputs' and the loss's max |err| / max
+# |value| and, per parameter group, (gradient cosine >=, relative norm
+# difference <=), about 1.5x off the readings (H100 80GB HBM3, 700 W; three
+# runs read alike): outputs 3.07e-6 (grid) / 1.11e-6 (occupancy), loss 0;
+# 1 - cosine 6.7e-13 / 2.21e-12 / 2.16e-12 / 1.78e-12 / 5.5e-13 and relative
+# norm difference 3.14e-8 / 3.60e-8 / 2.06e-8 / 3.07e-8 / 7.06e-9 for stem /
+# down / mid / up / head.
+DIFF_SMALL_OUT_RTOL = 5e-6
+DIFF_SMALL_LIMITS = {"stem": (1 - 1e-12, 5e-8), "down": (1 - 3.5e-12, 5.5e-8), "mid": (1 - 3.5e-12, 3.1e-8),
+                     "up": (1 - 2.7e-12, 4.6e-8), "head": (1 - 8.5e-13, 1.1e-8)}
+
+
+def _diffusion_small_reference(dev) -> dict:
+    """A forward and the loss's backward of a small UNet3D on the card and on
+    the CPU, with the same weights, inputs, masks and loss draws, IEEE
+    float32 on both.  Returns the readings, with the groups outside their
+    limits under ``"outside_limits"``."""
+    import numpy as np
+    import torch
+
+    from gshell_tpu_torch.models.losses import ddpm_loss
+    from gshell_tpu_torch.models.sde import make_vpsde
+    from gshell_tpu_torch.models.unet3d import UNet3D, UNet3DConfig, compute_policy, init_unet
+    from gshell_tpu_torch.utils.rng import ReplayDraws, TorchDraws
+
+    cfg = UNet3DConfig(base_channels=16, ch_mult=(1, 2), down_block_types=("ResBlock", "AttnResBlock"),
+                       up_block_types=("AttnResBlock", "ResBlock"), dropout=0.0)
+    d, rng = 16, np.random.default_rng(3)
+    model = init_unet(UNet3D(cfg), TorchDraws(torch.Generator().manual_seed(3)))
+    with torch.no_grad():  # lift the near-zero output convolutions so every group carries gradient
+        for p in model.parameters():
+            p.add_(torch.from_numpy(rng.normal(0.0, 0.02, size=tuple(p.shape)).astype(np.float32)))
+    x = torch.from_numpy(rng.normal(size=(2, 4, d, d, d)).astype(np.float32))
+    occ = torch.from_numpy(rng.normal(size=(2, 1, 2 * d, 2 * d, 2 * d)).astype(np.float32))
+    fm = torch.from_numpy((rng.uniform(size=(1, 4, d, d, d)) > 0.3).astype(np.float32))
+    om = torch.from_numpy((rng.uniform(size=(1, 1, 2 * d, 2 * d, 2 * d)) > 0.3).astype(np.float32))
+    t = torch.tensor([17, 640])
+
+    def source(kind, name, shape, lo, hi):
+        r = np.random.default_rng(sum(ord(c) * 31 ** i for i, c in enumerate(name)) % 2**32)
+        return r.integers(lo, hi, size=shape) if kind == "randint" else r.normal(size=shape).astype(np.float32)
+
+    runs, cudnn_det = {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same cuDNN algorithms, so the same readings, in every run
+    for where in ("cpu", dev):
+        m = UNet3D(cfg).to(where)
+        m.load_state_dict(model.state_dict())
+        to = lambda a: a.to(where)
+        with compute_policy("float32", torch.device(where).type):
+            with torch.no_grad():
+                g, o = m(to(x), to(occ), to(t), to(fm), None, to(om))
+            loss = ddpm_loss(make_vpsde(device=where), m, ReplayDraws(source, device=where),
+                             {"grid": to(x), "occgrid": to(occ)}, to(fm), to(om))
+            loss.backward()
+        grads = {}
+        for name, p in m.named_parameters():
+            grads.setdefault(m.param_group(name), []).append(p.grad.detach().double().cpu().reshape(-1))
+        runs[str(where)] = (g.double().cpu(), o.double().cpu(), float(loss.detach()),
+                            {k: torch.cat(v) for k, v in grads.items()})
+    torch.backends.cudnn.deterministic = cudnn_det
+    (g_c, o_c, l_c, gr_c), (g_d, o_d, l_d, gr_d) = runs["cpu"], runs[str(dev)]
+    read = {"grid": float((g_d - g_c).abs().max() / g_c.abs().max()),
+            "occ": float((o_d - o_c).abs().max() / o_c.abs().max()),
+            "loss": abs(l_d - l_c) / abs(l_c)}
+    for k in gr_c:
+        a, b = gr_d[k], gr_c[k]
+        na, nb = float(a.norm()), float(b.norm())
+        read[k] = (float(a @ b) / max(na * nb, 1e-300), abs(na - nb) / max(nb, 1e-300))
+    print("diffusion small UNet3D, card vs CPU (IEEE f32): output max rel err grid "
+          f"{read['grid']:.2e} occ {read['occ']:.2e}, loss rel {read['loss']:.2e}; gradient 1 - cosine / rel. "
+          "norm diff " + ", ".join(f"{k} {1 - read[k][0]:.2e} / {read[k][1]:.2e}" for k in DIFF_SMALL_LIMITS))
+    bad = [k for k in ("grid", "occ", "loss") if not read[k] <= DIFF_SMALL_OUT_RTOL]
+    bad += [k for k, (c, dn) in DIFF_SMALL_LIMITS.items() if not (read[k][0] >= c and read[k][1] <= dn)]
+    read["outside_limits"] = bad
+    return read
+
+
+def diffusion_path(smi: str, dev) -> dict:
+    """Phase 8: the diffusion path through the port's entry points at full
+    width — synthetic shapes → ``bake_grids.main`` (and the round trip
+    ``decode(bake(·))`` against the extractor) → a small UNet3D card vs CPU →
+    ``main_diffusion.main`` trains 3 iterations with a snapshot, then resumes
+    for 1 → a 10-step DDIM sample with the EMA weights →
+    ``eval_gmeshdiffusion.main`` decodes the sample and a baked grid.
+    Returns the phase's record; raises on any failed check."""
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gshell_tpu_torch import bake_grids, eval_gmeshdiffusion, main_diffusion
+    from gshell_tpu_torch.geometry.generative_decode import GenerativeCodec
+    from gshell_tpu_torch.geometry.geometry import GeometryConfig, GShellGeometry
+    from gshell_tpu_torch.models.sampling import ddim_timesteps
+    from gshell_tpu_torch.models.unet3d import UNet3DConfig, forward_flops
+    from gshell_tpu_torch.utils.synthetic import open_ellipsoid_state
+
+    t_phase = time.time()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    shutil.rmtree(DIFF_OUT, ignore_errors=True)
+    states, baked_dir, wd = (os.path.join(DIFF_OUT, n) for n in ("states", "baked", "run"))
+    shapes = []
+    for i in range(DIFF_SHAPES):
+        os.makedirs(os.path.join(states, f"shape{i}"))
+        shapes.append(open_ellipsoid_state(DIFF_RES, seed=i))
+        torch.save(shapes[-1], os.path.join(states, f"shape{i}", "state.pt"))
+    rec = {"cuts": DIFF_CUTS}
+
+    # ---- bake, and the round trip on the card ----
+    t0 = time.time()
+    baked = bake_grids.main(["--states", os.path.join(states, "*", "state.pt"), "--grid-res", str(DIFF_RES),
+                             "--out-dir", baked_dir, "--device", str(dev)])
+    sync()
+    rec["bake_seconds"] = time.time() - t0
+    fm = om = None
+    for path in baked.values():
+        with np.load(path) as z:
+            if z["grid"].shape != (2 * DIFF_RES,) * 3 + (4,) or z["occgrid"].shape != (4 * DIFF_RES,) * 3:
+                raise RuntimeError(f"{path}: grid {z['grid'].shape}, occgrid {z['occgrid'].shape}")
+            fm = z["feature_mask"] if fm is None else np.maximum(fm, z["feature_mask"])
+            om = z["occ_mask"] if om is None else np.maximum(om, z["occ_mask"])
+    mask_file = os.path.join(DIFF_OUT, "masks.npz")
+    np.savez(mask_file, feature_mask=fm, occ_mask=om)
+    geo = GShellGeometry(GeometryConfig(grid_res=DIFF_RES, use_sdf_mlp=False), dev)
+    codec = GenerativeCodec(geo.extractor)
+    rec["roundtrip"] = []
+    for i, st in enumerate(shapes):
+        params = {k: v.to(dev) for k, v in st["params_geo"].items()}
+        v_def, sdf, msdf = geo.fields(params)
+        with torch.no_grad():
+            direct = geo.extractor(v_def, sdf, msdf)
+        dec = codec.decode(v_def, codec.bake(v_def, sdf, msdf, params["deform"]))
+        fv = direct.face_valid
+        same_faces = bool(torch.equal(fv, dec.face_valid)) and bool(torch.equal(direct.faces[fv], dec.faces[fv]))
+        used = torch.unique(direct.faces[fv])
+        err = float((direct.verts[used] - dec.verts[used]).abs().max()) if used.numel() else 0.0
+        rec["roundtrip"].append({"faces": int(fv.sum()), "same_faces": same_faces, "max_vert_err": err})
+        if not same_faces or err > 2e-2 or int(fv.sum()) == 0:
+            raise RuntimeError(f"round trip of shape {i}: {rec['roundtrip'][-1]}")
+    print(f"diffusion bake: {DIFF_SHAPES} shapes at tet res {DIFF_RES} in {rec['bake_seconds']:.2f} s; "
+          f"masks {int(fm[..., 0].sum())} / {int(om.sum())} sites; round trip faces "
+          f"{[r['faces'] for r in rec['roundtrip']]}, equal faces, max vertex error "
+          f"{max(r['max_vert_err'] for r in rec['roundtrip']):.3e}  [{smi}]")
+    del geo, codec, direct, dec, params, v_def, sdf, msdf
+
+    # ---- card vs CPU at a small width ----
+    rec["card_vs_cpu"] = _diffusion_small_reference(dev)
+
+    # ---- train at full width, then resume ----
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = ["--mode", "train", "--data-glob", os.path.join(baked_dir, "*.npz"), "--mask-file", mask_file,
+             "--workdir", wd, "--batch", "1", "--grad-acc", "2", "--snapshot-freq", "2", "--log-freq", "1",
+             "--device", str(dev)]
+    first = main_diffusion.main(train + ["--n-iters", "3"])
+    resumed = main_diffusion.main(train + ["--n-iters", "4"])
+    sync()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log = first["log"] + resumed["log"]
+    steady = sorted(e["s"] for e in log[1:])
+    s_step = steady[len(steady) // 2]
+    samples_per_step = 1 * 2
+    flops = 3 * forward_flops(UNet3DConfig(), 2 * DIFF_RES)
+    rec["train"] = {
+        "params": first["params"], "precision": "float32 (IEEE, TF32 off)", "remat": False,
+        "steps_s": [e["s"] for e in log], "loss": [e["loss"] for e in log],
+        "s_per_step": s_step, "s_per_micro_step": s_step / samples_per_step, "peak_gib": peak,
+        "snapshot_bytes": first["snapshot_bytes"], "snapshot_seconds": first["snapshot_seconds"],
+        "flops_per_sample": flops, "tflops": flops * samples_per_step / s_step / 1e12,
+        "saved_step": 3, "resumed_at": resumed["start_step"],
+        "resumed_log_steps": [e["step"] for e in resumed["log"]],
+    }
+    tr = rec["train"]
+    print(f"diffusion train at 128³/256³: {tr['params']} parameters (JAX {UNET_PARAMS}), {tr['precision']}, "
+          f"remat off; steps {[round(s, 3) for s in tr['steps_s']]} s, median after the first "
+          f"{s_step:.3f} s/step ({tr['s_per_micro_step']:.3f} s per micro-step), losses "
+          f"{[round(v, 5) for v in tr['loss']]}; peak {peak:.2f} GiB; snapshot {tr['snapshot_bytes']} bytes in "
+          f"{tr['snapshot_seconds']:.2f} s; resumed at step {tr['resumed_at']}; {flops / 1e12:.1f} TFLOP per "
+          f"trained sample (3 x forward), {tr['tflops']:.2f} TFLOP/s  [{smi}]")
+
+    # ---- sample, then decode ----
+    n_ddim = 10
+    gen = main_diffusion.main(["--mode", "uncond_gen", "--sampling-method", "ddim", "--n-sampling-steps",
+                               str(n_ddim), "--n-samples", "1", "--mask-file", mask_file, "--workdir", wd,
+                               "--device", str(dev)])
+    n_steps = len(ddim_timesteps(1000, n_ddim))
+    rec["sample"] = {"ddim_steps": n_steps, "seconds": gen["seconds"], "sampling_seconds": gen["sampling_seconds"],
+                     "s_per_step": gen["sampling_seconds"] / n_steps, "from_step": gen["start_step"]}
+    with np.load(gen["samples"][0]) as z:
+        finite = bool(np.isfinite(z["grid"]).all() and np.isfinite(z["occgrid"]).all())
+        rec["sample"]["shapes"] = [list(z["grid"].shape), list(z["occgrid"].shape)]
+    with np.load(baked["shape0"]) as z:
+        np.savez_compressed(os.path.join(wd, "baked_shape0.npz"), grid=z["grid"], occgrid=z["occgrid"])
+    meshes = os.path.join(DIFF_OUT, "meshes")
+    faces = eval_gmeshdiffusion.main(["--samples", os.path.join(wd, "*.npz"), "--grid-res", str(DIFF_RES),
+                                      "--out-dir", meshes, "--device", str(dev)])
+    rec["decode"] = {"sample_faces": faces["sample_0000"], "baked_faces": faces["baked_shape0"],
+                     "roundtrip_faces": rec["roundtrip"][0]["faces"],
+                     "objs": sorted(os.path.basename(p) for p in glob.glob(os.path.join(meshes, "*.obj")))}
+    print(f"diffusion sample: {n_steps} DDIM steps in {gen['sampling_seconds']:.2f} s "
+          f"({rec['sample']['s_per_step']:.3f} s/step; {gen['seconds']:.2f} s with the .npz) with the EMA weights "
+          f"of step {gen['start_step']}; decoded sample {faces['sample_0000']} faces, baked shape 0 "
+          f"{faces['baked_shape0']} faces (round trip {rec['roundtrip'][0]['faces']})  [{smi}]")
+
+    bad = [f"step {e['step']} loss {e['loss']}" for e in log if not math.isfinite(e["loss"])]
+    if rec["card_vs_cpu"]["outside_limits"]:
+        bad.append(f"the small UNet3D on the card disagrees with the CPU ({rec['card_vs_cpu']['outside_limits']})")
+    if tr["params"] != UNET_PARAMS:
+        bad.append(f"{tr['params']} parameters, the JAX package has {UNET_PARAMS}")
+    if [e["step"] for e in first["log"]] != [0, 1, 2] or tr["resumed_at"] != 3 or tr["resumed_log_steps"] != [3]:
+        bad.append(f"steps {[e['step'] for e in first['log']]}, resumed at {tr['resumed_at']} "
+                   f"({tr['resumed_log_steps']})")
+    if not finite or rec["sample"]["shapes"] != [[2 * DIFF_RES] * 3 + [4], [4 * DIFF_RES] * 3]:
+        bad.append(f"sample finite {finite}, shapes {rec['sample']['shapes']}")
+    if faces["baked_shape0"] != rec["roundtrip"][0]["faces"]:
+        bad.append(f"baked grid decodes to {faces['baked_shape0']} faces, round trip {rec['roundtrip'][0]['faces']}")
+    if "sample_0000.obj" not in rec["decode"]["objs"]:
+        bad.append(f"no OBJ of the sample: {rec['decode']['objs']}")
+    rec["seconds"] = time.time() - t_phase
+    print(f"diffusion phase: {rec['seconds']:.1f} s")
+    if bad:
+        raise RuntimeError("phase 8 (diffusion path) failed: " + "; ".join(bad))
+    return rec
+
+
 def card_name() -> str:
     """``nvidia-smi``'s name and power limit of the first card."""
     return subprocess.run(
@@ -704,6 +956,11 @@ def main() -> int:
         if min(r["launches_by_path"].values()) == 0:
             raise RuntimeError(f"{r['name']} was not launched on every path: {r['launches_by_path']}")
 
+    # ---- phase 8: the diffusion path at full width (launches neither kernel) ----
+    torch.cuda.empty_cache()
+    diffusion = diffusion_path(smi, dev)
+
+    print(json.dumps({"diffusion": diffusion}))
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,12 +16,47 @@ def _t(a, device):
 
 
 def params_geo_from_jax(params_geo: dict, device) -> dict:
-    net = params_geo["sdf_net"]
-    return {
-        "deform": _t(params_geo["deform"], device),
-        "msdf": _t(params_geo["msdf"], device),
-        "sdf_net": {"w": [_t(w, device) for w in net["w"]], "b": [_t(b, device) for b in net["b"]]},
-    }
+    """Geometry parameters: ``deform``, then a direct ``sdf`` or an
+    ``sdf_net`` MLP, and a direct ``msdf`` or an ``msdf_net`` MLP, as the
+    JAX state holds them."""
+    out = {"deform": _t(params_geo["deform"], device)}
+    for name in ("sdf", "msdf"):
+        if name in params_geo:
+            out[name] = _t(params_geo[name], device)
+        else:
+            net = params_geo[f"{name}_net"]
+            out[f"{name}_net"] = {"w": [_t(w, device) for w in net["w"]],
+                                  "b": [_t(b, device) for b in net["b"]]}
+    return out
+
+
+def unet_params_from_flax(params: dict) -> dict:
+    """A flax ``UNet3D`` parameter tree → the port's ``UNet3D`` state dict.
+    Module names carry over (``CheckpointResBlock_k``, the rematerialized
+    name, becomes ``ResBlock_k``); a conv kernel (kd, kh, kw, in, out)
+    becomes (out, in, kd, kh, kw), the transposed occupancy head's is
+    flipped on its spatial axes and laid out (in, out, kd, kh, kw), a dense
+    kernel (in, out) becomes (out, in)."""
+    out = {}
+
+    def walk(node, path):
+        for name, val in node.items():
+            if isinstance(val, dict) or hasattr(val, "items"):
+                walk(val, path + [name.replace("CheckpointResBlock_", "ResBlock_")])
+                continue
+            a = np.asarray(val, dtype=np.float32)
+            if name == "kernel":
+                name = "weight"
+                if a.ndim == 5 and path[-1].startswith("ConvTranspose"):
+                    a = a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+                elif a.ndim == 5:
+                    a = a.transpose(4, 3, 0, 1, 2)
+                else:
+                    a = a.T
+            out[".".join(path + [name])] = torch.from_numpy(np.array(a, order="C"))
+
+    walk(params, [])
+    return out
 
 
 def params_mat_from_jax(params_mat, device) -> dict:

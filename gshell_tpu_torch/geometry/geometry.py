@@ -1,6 +1,8 @@
 """Trainable G-Shell geometry: parameters, extraction and the training loss
 (PyTorch twin of ``gshell_tpu/geometry/geometry.py``, MLP-SDF path with
-lazy field gradients).
+lazy field gradients).  ``init_params`` and ``fields`` also serve a direct
+(per-vertex) SDF and an mSDF MLP, which only grid baking reads; training
+them is not ported.
 
 ``tick`` assembles the reference loss: image + mask loss, mSDF image hinges,
 eikonal on surface samples, mSDF open/close regularizers, the annealed SDF
@@ -28,6 +30,8 @@ class GeometryConfig:
     scale: float = 1.4
     boxscale: tuple = (1.0, 1.0, 1.0)
     mlp: MLPConfig = MLPConfig(n_freq=6, d_hidden=256, n_hidden=6, skip_in=(3,))
+    use_sdf_mlp: bool = True
+    use_msdf_mlp: bool = False
     sphere_init_norm: float = 0.5
     msdf_reg_open_scale: float = 1e-6
     msdf_reg_close_scale: float = 3e-6
@@ -60,7 +64,9 @@ class CutMesh(NamedTuple):
 
 class GShellGeometry:
     """Static lattice + extractor + config; parameters live in plain dicts
-    ``{"deform": (N, 3), "msdf": (N,), "sdf_net": {"w": [...], "b": [...]}}``."""
+    ``{"deform": (N, 3), "msdf": (N,), "sdf_net": {"w": [...], "b": [...]}}``
+    (``"sdf"`` (N,) in place of ``"sdf_net"`` for a direct SDF,
+    ``"msdf_net"`` in place of ``"msdf"`` for an mSDF MLP)."""
 
     _FIELD_CHUNK = 1 << 19
 
@@ -81,12 +87,18 @@ class GShellGeometry:
     # ---------------- parameters ----------------
     def init_params(self, draws) -> dict:
         n = self.grid.n_verts
-        msdf = torch.clamp(draws.uniform("msdf", (n,)) - 0.01, -1.0, 1.0)
-        return {
-            "deform": torch.zeros((n, 3), device=self.device),
-            "sdf_net": init_mlp(draws.child("sdf_net"), self.cfg.mlp, self.device),
-            "msdf": msdf.to(self.device),
-        }
+        params = {"deform": torch.zeros((n, 3), device=self.device)}
+        # the direct mSDF is drawn before the SDF MLP: a generator-backed
+        # source hands out numbers in call order, and seeded states depend on it
+        if not self.cfg.use_msdf_mlp:
+            params["msdf"] = torch.clamp(draws.uniform("msdf", (n,)) - 0.01, -1.0, 1.0).to(self.device)
+        if self.cfg.use_sdf_mlp:
+            params["sdf_net"] = init_mlp(draws.child("sdf_net"), self.cfg.mlp, self.device)
+        else:
+            params["sdf"] = torch.linalg.norm(self.lattice_verts() / self.boxscale, dim=-1) - 0.5
+        if self.cfg.use_msdf_mlp:
+            params["msdf_net"] = init_mlp(draws.child("msdf_net"), self.cfg.mlp, self.device)
+        return params
 
     def pretrain_sdf(self, params: dict, draws, steps: int = 1000, lr: float = 1e-3) -> dict:
         """Fit the SDF MLP to a sphere of radius ``sphere_init_norm`` on random
@@ -115,17 +127,29 @@ class GShellGeometry:
         base = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
         return base * (self.cfg.scale * self.boxscale)
 
+    def _field(self, params: dict, name: str, pts):
+        """A direct field ``params[name]`` or its MLP ``params[name + "_net"]``
+        evaluated at ``pts`` in row chunks."""
+        if name in params:
+            return params[name]
+        net = params[f"{name}_net"]
+        return torch.cat([apply_mlp(net, pts[i:i + self._FIELD_CHUNK], self.cfg.mlp)[:, 0]
+                          for i in range(0, pts.shape[0], self._FIELD_CHUNK)])
+
+    @torch.no_grad()
+    def fields(self, params: dict):
+        """(v_deformed, sdf, msdf) without gradients, for every combination of
+        a direct or an MLP SDF and mSDF."""
+        v_def = self.lattice_verts() + self.max_displacement * params["deform"]
+        return v_def, self._field(params, "sdf", v_def), self._field(params, "msdf", v_def)
+
     def fields_lazy(self, params: dict):
         """(v_def, sdf without gradient, msdf, sdf_fn): the dense SDF gives
         only signs; ``sdf_fn`` re-evaluates the MLP where values matter."""
         v_def = self.lattice_verts() + self.max_displacement * params["deform"]
         net, mcfg = params["sdf_net"], self.cfg.mlp
         with torch.no_grad():
-            pts = v_def.detach()
-            sdf = torch.cat([
-                apply_mlp(net, pts[i:i + self._FIELD_CHUNK], mcfg)[:, 0]
-                for i in range(0, pts.shape[0], self._FIELD_CHUNK)
-            ])
+            sdf = self._field(params, "sdf", v_def.detach())
         return v_def, sdf, params["msdf"], lambda p: apply_mlp(net, p, mcfg)[:, 0]
 
     def splat_occupancy(self, draws, verts, faces, face_valid, res: int = 65,

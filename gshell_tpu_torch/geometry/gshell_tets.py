@@ -20,7 +20,7 @@ import torch
 
 from ..ops.compact import nonzero_compact
 from . import tet_tables as tt
-from .tet_grid import EDGE_OFFSETS, TetGrid, _PATHS, default_capacities
+from .tet_grid import EDGE_OFFSETS, TetGrid, _PATHS, _edge_class_bases, default_capacities
 
 
 def _tet_corner_offsets():
@@ -73,10 +73,12 @@ class GShellTets:
         self.max_tets = int(max_tets)
         self.max_verts = int(max_verts)
         self.n_grid_verts = grid.n_verts
+        self.n_grid_edges = grid.n_edges
         self.max_cubes = max(self.max_tets // 4, 1)
         self.max_lat_verts = min(3 * self.max_cubes, grid.n_verts)
         as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=self.device)
         self._edge_offsets = as_t(EDGE_OFFSETS)
+        self._edge_bases = as_t(_edge_class_bases(grid.res))
         self._tet_corners = as_t(_TET_CORNERS)
         key_to_cls = np.full(8, -1, np.int64)
         for i, o in enumerate(EDGE_OFFSETS):
@@ -92,6 +94,27 @@ class GShellTets:
 
     def _arange(self, n):
         return torch.arange(n, dtype=torch.int64, device=self.device)
+
+    @property
+    def edges_pad(self) -> torch.Tensor:
+        """(E + 1, 2) lattice edges, low vertex first, in the global edge
+        numbering (class-major, then the lower corner raveled), and a
+        sentinel row (N, N); built closed-form on first use."""
+        if not hasattr(self, "_edges_pad"):
+            n = self.grid.res + 1
+            vid = self._arange(n ** 3).reshape(n, n, n)
+            rows = [torch.stack([vid[:n - ox, :n - oy, :n - oz].reshape(-1), vid[ox:, oy:, oz:].reshape(-1)], -1)
+                    for ox, oy, oz in EDGE_OFFSETS.tolist()]
+            rows.append(torch.full((1, 2), self.n_grid_verts, dtype=torch.int64, device=self.device))
+            self._edges_pad = torch.cat(rows)
+        return self._edges_pad
+
+    def edge_ids_from(self, lo_xyz, cls):
+        """(lower-corner lattice coords, class) → global edge id."""
+        n = self.grid.res + 1
+        o = self._edge_offsets[cls]
+        local = (lo_xyz[..., 0] * (n - o[..., 1]) + lo_xyz[..., 1]) * (n - o[..., 2]) + lo_xyz[..., 2]
+        return self._edge_bases[cls] + local
 
     def active_cubes(self, occ_vol):
         """Cube activity (8 corners mix signs) + compacted cube coords."""
@@ -133,7 +156,9 @@ class GShellTets:
 
     def compact_edges(self, occ_flat, cube_act):
         """Crossing edges of the dilated active-cube vertex set → V template
-        vertex slots → (slot_valid, ev0, ev1, vert_slot_of_edges)."""
+        vertex slots → (slot_valid, ev0, ev1, lo_xyz, cls,
+        vert_slot_of_edges): endpoint vertex ids and each slot's edge as
+        lower corner and class."""
         n_lat = self.grid.res + 1
         N, V, MVL = self.n_grid_verts, self.max_verts, self.max_lat_verts
         act_pad = torch.nn.functional.pad(cube_act, (1, 1, 1, 1, 1, 1))
@@ -164,7 +189,8 @@ class GShellTets:
         slot_valid = ce_idx < 7 * MVL
         cei = torch.where(slot_valid, ce_idx, 0)
         li, cls = cei // 7, cei % 7
-        hi_xyz = lv_xyz[li] + self._edge_offsets[cls]
+        lo_xyz = lv_xyz[li]
+        hi_xyz = lo_xyz + self._edge_offsets[cls]
         ev0 = torch.where(slot_valid, lv[li], N)
         ev1 = torch.where(slot_valid, (hi_xyz[..., 0] * n_lat + hi_xyz[..., 1]) * n_lat + hi_xyz[..., 2], N)
 
@@ -177,7 +203,7 @@ class GShellTets:
             lvs = slot_of_lv[torch.where(valid, vid, N)]
             return vert_of_cand[torch.where(lvs < MVL, lvs * 7 + e_cls, 7 * MVL)]
 
-        return slot_valid, ev0, ev1, vert_slot_of_edges
+        return slot_valid, ev0, ev1, lo_xyz, cls, vert_slot_of_edges
 
     def tet_edge_lo_cls(self, corner_xyz):
         """Per tet edge [01,02,03,12,13,23]: (lower corner, edge class)."""
@@ -208,7 +234,7 @@ class GShellTets:
             (occ_vol[:n_lat - ox, :n_lat - oy, :n_lat - oz] != occ_vol[ox:, oy:, oz:]).sum()
             for ox, oy, oz in EDGE_OFFSETS.tolist()
         )
-        slot_valid, ev0, ev1, vert_slot_of_edges = self.compact_edges(occ_flat, cube_act)
+        slot_valid, ev0, ev1, _, _, vert_slot_of_edges = self.compact_edges(occ_flat, cube_act)
 
         pa, pb = pos_p[ev0], pos_p[ev1]
         if sdf_fn is not None:

@@ -1,4 +1,5 @@
-"""Synthetic meshes that hold the stage-B kernel to its rule.
+"""Synthetic inputs: meshes that hold the stage-B kernel to its rule, and
+stand-ins for fitted G-Shell states for the diffusion pipeline.
 
 :func:`crowded_tile_mesh` crowds one 16×16 screen tile with far more
 (triangle, tile) pairs than one stage-B sub-segment takes, so the kernel
@@ -9,6 +10,9 @@ whose duplicate at -0.0 comes last (the rule treats ±0 as equal, so the
 depths on eighths, so every edge value and depth numerator is exact in
 float32: any two implementations of the rule, with or without FMA
 contraction, give the same ids.
+
+:func:`open_ellipsoid_state` stands in for a fitted garment where no baked
+data set is at hand: a direct-SDF ellipsoid cut open by a tilted mSDF plane.
 """
 from __future__ import annotations
 
@@ -51,3 +55,25 @@ def crowded_tile_mesh(res: int, n_small: int = 600, n_dup: int = 80, seed: int =
     ], axis=1).astype(np.float32)
     faces = np.arange(3 * f, dtype=np.int64).reshape(f, 3)
     return torch.from_numpy(v_clip), torch.from_numpy(faces)
+
+
+def open_ellipsoid_state(res: int, seed: int, scale: float = 1.4) -> dict:
+    """``{"params_geo": {"deform", "sdf", "msdf"}}`` (CPU tensors) on the
+    res-``res`` lattice of the scale-``scale`` box, from numpy seeded with
+    ``seed``: an ellipsoid SDF with radii in [0.25, 0.4], positive inside
+    (the sign ``GenerativeCodec.decode`` assumes when it pads the cropped
+    outer plane with 0), cut open by a tilted mSDF plane through it
+    (positive mSDF keeps the surface), and deform uniform in ±0.3."""
+    rng = np.random.default_rng(seed)
+    n = res + 1
+    axis = np.linspace(-0.5, 0.5, n, dtype=np.float32)
+    axis = axis - axis.mean()
+    p = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3) * np.float32(scale)
+    radii = rng.uniform(0.25, 0.4, size=3)
+    sdf = (1.0 - np.linalg.norm(p / radii, axis=-1)) * radii.min()
+    normal = np.array([0.0, 1.0, 0.0]) + rng.uniform(-0.4, 0.4, size=3)
+    normal /= np.linalg.norm(normal)
+    msdf = p @ normal + rng.uniform(-0.1, 0.1) * radii.min()
+    deform = rng.uniform(-0.3, 0.3, size=(n ** 3, 3))
+    return {"params_geo": {k: torch.from_numpy(v.astype(np.float32))
+                           for k, v in (("deform", deform), ("sdf", sdf), ("msdf", msdf))}}

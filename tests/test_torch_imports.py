@@ -125,6 +125,9 @@ print("ok")
     ["gshell_tpu_torch.train_gshell", "--help"],
     ["gshell_tpu_torch.eval_reconstruction", "--help"],
     ["gshell_tpu_torch.utils.synthetic_gt", "sphere", "{tmp}/sphere.obj"],
+    ["gshell_tpu_torch.bake_grids", "--help"],
+    ["gshell_tpu_torch.main_diffusion", "--help"],
+    ["gshell_tpu_torch.eval_gmeshdiffusion", "--help"],
 ])
 def test_entry_points_run_as_main_without_jax(tmp_path, argv):
     """``python -m`` of each entry point of the port, under the import guard."""
@@ -158,3 +161,51 @@ def test_synthetic_gt_copy_equals_the_original(tmp_path, shape):
     synthetic_gt.write_obj(str(tmp_path / "a.obj"), va, fa)
     orig.write_obj(str(tmp_path / "b.obj"), vb, fb)
     assert (tmp_path / "a.obj").read_bytes() == (tmp_path / "b.obj").read_bytes()
+
+
+def _jax_eval_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("jax_eval_gmeshdiffusion",
+                                                  os.path.join(ROOT, "eval_gmeshdiffusion.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["GShellGridDataset", "make_splits", "laplacian_smooth"])
+def test_diffusion_copies_equal_their_originals(name):
+    """The port's copies of ``GShellGridDataset`` / ``make_splits``
+    (``gshell_tpu/data/datasets.py``) and ``laplacian_smooth``
+    (``eval_gmeshdiffusion.py``) are the originals' source, line for line."""
+    import inspect
+
+    from gshell_tpu.data import datasets as jdatasets
+    from gshell_tpu_torch import eval_gmeshdiffusion
+    from gshell_tpu_torch.data import grids
+
+    if name == "laplacian_smooth":
+        ours, orig = eval_gmeshdiffusion.laplacian_smooth, _jax_eval_module().laplacian_smooth
+    else:
+        ours, orig = getattr(grids, name), getattr(jdatasets, name)
+    assert inspect.getsource(ours) == inspect.getsource(orig)
+
+
+def test_grid_dataset_and_splits_copies_behave_as_the_originals(tmp_path):
+    from gshell_tpu.data import datasets as jdatasets
+    from gshell_tpu_torch.data import grids
+
+    rng = np.random.default_rng(0)
+    files = []
+    for i in range(6):
+        f = tmp_path / f"g{i}.npz"
+        np.savez(f, grid=rng.normal(size=(4, 4, 4, 2)).astype(np.float32),
+                 occgrid=rng.normal(size=(8, 8, 8)).astype(np.float32))
+        files.append(str(f))
+    assert grids.make_splits(files, seed=3) == jdatasets.make_splits(files, seed=3)
+    for use_occ in (True, False):
+        a = grids.GShellGridDataset(files, use_occ).sample_batch(np.random.default_rng(1), 4)
+        b = jdatasets.GShellGridDataset(files, use_occ).sample_batch(np.random.default_rng(1), 4)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])

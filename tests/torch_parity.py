@@ -31,6 +31,17 @@ def n(x):
     return np.asarray(x)
 
 
+def ncdhw(a):
+    """A channels-last (N, D, H, W, C) array as the port's contiguous
+    (N, C, D, H, W) tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(np.asarray(a), -1, 1)))
+
+
+def ndhwc_shape(shape):
+    """An (N, C, D, H, W) shape in JAX's channels-last order."""
+    return (shape[0],) + tuple(shape[2:]) + (shape[1],)
+
+
 def assert_close(actual, desired, rtol, atol=0.0, what=""):
     a, d = n(actual).astype(np.float64), n(desired).astype(np.float64)
     assert a.shape == d.shape, f"{what}: shape {a.shape} != {d.shape}"
