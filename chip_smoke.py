@@ -192,6 +192,43 @@ def _device_ms(fn, k: int = 20) -> float:
     return sorted(times)[3]
 
 
+def time_stage_b(bins, v_clip, faces, res: int, label: str, smi: str) -> dict:
+    """Stage B on one view's pairs: device ms (graph replay), ms called
+    from Python, the plain version's ms, and the bound from the pixels this
+    view's pairs must test."""
+    from gshell_tpu_torch.ops import rasterize as rz
+
+    args = (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
+    n_pairs = int(bins.tile_cnt.sum())
+    box_px, inside_px = stage_b_pair_pixels(bins, v_clip, faces, res)
+    out = {"ms": _device_ms(lambda: rz.rasterize_stage_b(*args)),
+           "eager_ms": _median_ms(lambda: rz.rasterize_stage_b(*args)),
+           "plain_ms": _median_ms(lambda: rz.stage_b_plain(*args)),
+           "pairs": n_pairs, "pair_px_box": box_px, "pair_px_inside": inside_px}
+    out["bound_ms"], out["bound_by"] = stage_b_bound(n_pairs, bins.n_tiles, box_px, inside_px)
+    print(f"stage B at {res}² ({label}): {n_pairs} pairs, {n_pairs * 256} pair-pixels, "
+          f"{box_px} in the triangles' boxes, {inside_px} inside all three edges; kernel {out['ms']:.4f} ms "
+          f"on the card ({out['eager_ms']:.4f} ms called from Python), plain {out['plain_ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.5f} ms ({out['bound_by']})  [{smi}]")
+    return out
+
+
+def time_stencil(col, nrm, zdz, smi: str) -> dict:
+    """The forward stencil (r = 11, sigma 2) on one view's guides: device ms,
+    ms called from Python, the plain version's ms and the bound."""
+    from gshell_tpu_torch.ops import denoiser as dn
+
+    h, w, c = col.shape
+    out = {"ms": _device_ms(lambda: dn.bilateral_accumulate(col, nrm, zdz, 2.0, 11), k=5),
+           "eager_ms": _median_ms(lambda: dn.bilateral_accumulate(col, nrm, zdz, 2.0, 11)),
+           "plain_ms": _median_ms(lambda: dn.bilateral_plain(col, nrm, zdz, 2.0, 11))}
+    out["bound_ms"], out["bound_by"] = stencil_bound(h, w, 11, c)
+    print(f"denoiser at {h}x{w}, r=11, C={c}: kernel {out['ms']:.4f} ms on the card "
+          f"({out['eager_ms']:.4f} ms called from Python), plain {out['plain_ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})  [{smi}]")
+    return out
+
+
 def _median_ms(fn, n=10):
     import torch
 
@@ -447,6 +484,67 @@ class KernelTaps:
             setattr(mod, name, fn)
 
 
+class EntryPoints:
+    """Runs the port's entry points with both launch counts set to 0 just
+    before each call and read just after it (the entry points report each
+    of their phases, which must sum to the counts), with ``KernelTaps``
+    installed; then holds each kernel's first and last launch of the call
+    against its plain version, and keeps the largest error per kernel in
+    ``held``."""
+
+    def __init__(self, taps: KernelTaps):
+        self.taps, self.held = taps, {}
+
+    def counted(self, fn, argv):
+        import torch
+
+        from gshell_tpu_torch.ops import denoiser as dn
+        from gshell_tpu_torch.ops import rasterize as rz
+        from gshell_tpu_torch.train.setup import kernel_launches
+
+        self.taps.clear()
+        rz.stage_b_calls, dn.bilateral_launches = 0, 0
+        t0 = time.time()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        out["seconds"] = time.time() - t0
+        for k, v in kernel_launches().items():
+            if sum(p[k] for p in out["launches"].values()) != v:
+                raise RuntimeError(f"{fn.__module__}: {k} launches by phase {out['launches']} do not sum to {v}")
+        out["taps"] = self.taps.taps
+        return out
+
+    def hold(self, label, run_out):
+        import torch
+
+        with torch.no_grad():
+            for when, (args, out) in zip(("first", "last"), run_out["taps"]["rasterize_stage_b"]):
+                err = hold_stage_b(f"{label}, {when} launch", args, out)
+                self.held["rasterize_stage_b"] = max(self.held.get("rasterize_stage_b", 0.0), err)
+            for when, (args, out) in zip(("first", "last"), run_out["taps"]["bilateral_accumulate"]):
+                err = hold_bilateral(f"{label}, {when} launch", args, out)
+                self.held["bilateral_accumulate"] = max(self.held.get("bilateral_accumulate", 0.0), err)
+        del run_out["taps"]
+
+    def train(self, argv, label):
+        import torch
+
+        from gshell_tpu_torch import train_gshell
+
+        torch.cuda.reset_peak_memory_stats()
+        out = self.counted(train_gshell.main, argv)
+        out["peak"] = torch.cuda.max_memory_allocated() / 2**30  # before the plain versions run
+        self.hold(label, out)
+        return out
+
+    def evaluate(self, argv, label):
+        from gshell_tpu_torch import eval_reconstruction
+
+        out = self.counted(eval_reconstruction.main, argv)
+        self.hold(label, out)
+        return out
+
+
 def cli_path(smi: str):
     """Phase 7: generator → ``train_gshell.main`` (2 iterations, then resumed
     to 4) → ``eval_reconstruction.main`` at the skirt config's full width.
@@ -458,12 +556,6 @@ def cli_path(smi: str):
     path, max |err| per kernel); raises on any failed check."""
     import shutil
 
-    import torch
-
-    from gshell_tpu_torch import eval_reconstruction, train_gshell
-    from gshell_tpu_torch.ops import denoiser as dn
-    from gshell_tpu_torch.ops import rasterize as rz
-    from gshell_tpu_torch.train.setup import kernel_launches
     from gshell_tpu_torch.utils.synthetic_gt import skirt, write_obj
 
     shutil.rmtree(CLI_OUT, ignore_errors=True)
@@ -479,45 +571,15 @@ def cli_path(smi: str):
     run = os.path.join(CLI_OUT, "run")
     common = ["--config", cfg_path, "--ref-mesh", obj, "--out-dir", run, "--log-interval", "1"]
 
-    taps, held = KernelTaps(), {}
-
-    def counted(fn, argv):
-        taps.clear()
-        rz.stage_b_calls, dn.bilateral_launches = 0, 0
-        t0 = time.time()
-        out = fn(argv)
-        torch.cuda.synchronize()
-        out["seconds"] = time.time() - t0
-        for k, v in kernel_launches().items():
-            if sum(p[k] for p in out["launches"].values()) != v:
-                raise RuntimeError(f"{fn.__module__}: {k} launches by phase {out['launches']} do not sum to {v}")
-        out["taps"] = taps.taps
-        return out
-
-    def hold(label, run_out):
-        with torch.no_grad():
-            for when, (args, out) in zip(("first", "last"), run_out["taps"]["rasterize_stage_b"]):
-                err = hold_stage_b(f"{label}, {when} launch", args, out)
-                held["rasterize_stage_b"] = max(held.get("rasterize_stage_b", 0.0), err)
-            for when, (args, out) in zip(("first", "last"), run_out["taps"]["bilateral_accumulate"]):
-                err = hold_bilateral(f"{label}, {when} launch", args, out)
-                held["bilateral_accumulate"] = max(held.get("bilateral_accumulate", 0.0), err)
-        del run_out["taps"]
-
-    def train(argv, label):
-        torch.cuda.reset_peak_memory_stats()
-        out = counted(train_gshell.main, common + argv)
-        out["peak"] = torch.cuda.max_memory_allocated() / 2**30  # before the plain versions run
-        hold(label, out)
-        return out
-
-    with taps:
-        first = train(["--iter", "2"], "cli train (ground truth, then train step 1)")
-        resumed = train(["--iter", "4", "--resume"], "cli resumed train (ground truth, then train step 3)")
-        ev = counted(eval_reconstruction.main, [
+    with KernelTaps() as taps:
+        ep = EntryPoints(taps)
+        first = ep.train(common + ["--iter", "2"], "cli train (ground truth, then train step 1)")
+        resumed = ep.train(common + ["--iter", "4", "--resume"], "cli resumed train (ground truth, then train step 3)")
+        ev = ep.evaluate([
             "--state", os.path.join(run, "state.pt"), "--config", cfg_path, "--synthetic-ref-mesh", obj,
-            "--gt-mesh", obj, "--gt-unit-size", "--n-views", "16", "--out-dir", os.path.join(run, "validate")])
-        hold("cli eval (held-out ground truth, then eval view 15)", ev)
+            "--gt-mesh", obj, "--gt-unit-size", "--n-views", "16", "--out-dir", os.path.join(run, "validate")],
+            "cli eval (held-out ground truth, then eval view 15)")
+    held = ep.held
     if set(held) != {"rasterize_stage_b", "bilateral_accumulate"}:
         raise RuntimeError(f"phase 7 held only {sorted(held)} against the plain versions")
 
@@ -802,6 +864,262 @@ def diffusion_path(smi: str, dev) -> dict:
     return rec
 
 
+# Phase 9: G-Shell on FlexiCubes at the full width of configs/deepfashion_mc_80.json
+# (voxel grid 80, 1024², n_samples 24, batch 2, the SDF MLP 256 x 6 with a
+# skip at 3 and PE 6, eikonal, the default hash grid, mesh-splat shadows, the
+# bilateral denoiser).  Only depth is cut:
+FLEXI_CONFIG = os.path.join(ROOT, "configs", "deepfashion_mc_80.json")
+FLEXI_OUT = os.path.join(ROOT, "out", "chip_smoke", "flexi")  # gitignored
+FLEXI_RES = 1024
+FLEXI_GT_VIEWS, FLEXI_EVAL_VIEWS = 8, 4
+FLEXI_CUTS = ["3 iterations (2, then 1 resumed) in place of 5000",
+              f"{FLEXI_GT_VIEWS} ground-truth views in place of 64 (train_gshell.GT_VIEWS)",
+              f"{FLEXI_EVAL_VIEWS} held-out eval views in place of 16",
+              "the port's synthetic skirt in place of DeepFashion images (none are in the repository)"]
+
+
+def flexi_target(dev, res: int = FLEXI_RES) -> dict:
+    """Two cameras (front, and 2 units to the side) on a 0.3-radius disk
+    mask at ``res``², batch 2, as the FlexiCubes config trains."""
+    import torch
+
+    from gshell_tpu_torch.ops import math as gm
+
+    proj = gm.perspective(math.radians(45.0), 1.0, 0.1, 1000.0, device=dev)
+    mvps, campos = [], []
+    for eye in ([0.0, 0.4, 2.5], [2.0, 0.6, 1.4]):
+        eye_t = torch.tensor(eye, device=dev)
+        mvps.append(proj @ gm.lookat(eye_t, torch.zeros(3, device=dev), torch.tensor([0.0, 1.0, 0.0], device=dev)))
+        campos.append(eye_t)
+    ys, xs = torch.meshgrid(torch.arange(res, device=dev), torch.arange(res, device=dev), indexing="ij")
+    disk = (torch.sqrt((xs - res / 2) ** 2 + (ys - res / 2) ** 2) < 0.3 * res).float()
+    mask = disk[None, ..., None].repeat(2, 1, 1, 1)
+    return {"mvp": torch.stack(mvps), "campos": torch.stack(campos),
+            "img": torch.cat([0.5 * mask.repeat(1, 1, 1, 3), mask], -1),
+            "background": torch.zeros((2, res, res, 3), device=dev)}
+
+
+def flexi_point(dev, seed: int = SEED):
+    """The FlexiCubes step at the full width of ``FLEXI_CONFIG``, on ``dev``:
+    its ``Reconstructor``, a state after the config's SDF pretrain at step
+    ``shadow_ramp_iters`` (shadows and denoiser sigma 2 live), the draw
+    source and :func:`flexi_target` (the layout of :func:`working_point`)."""
+    import torch
+
+    from gshell_tpu_torch.train.setup import reconstructor_from_flags
+    from gshell_tpu_torch.utils.config import load_flags
+    from gshell_tpu_torch.utils.rng import TorchDraws
+
+    flags = load_flags(FLEXI_CONFIG)
+    rec = reconstructor_from_flags(flags, dev)
+    draws = TorchDraws(torch.Generator(dev).manual_seed(seed))
+    t0 = time.time()
+    state = rec.init_state(draws.child("init"), pretrain_steps=flags.sdf_mlp_pretrain_steps)
+    torch.cuda.synchronize()
+    print(f"init_state ({flags.sdf_mlp_pretrain_steps} lattice pretrain steps): {time.time() - t0:.2f} s")
+    state.step = rec.tcfg.shadow_ramp_iters
+    return rec, state, draws, flexi_target(dev, flags.train_res[0])
+
+
+def _sync_ms(fn):
+    """(fn(), its wall ms between two synchronizations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def flexi_layers(rec, state, target, reps: int = 5) -> dict:
+    """Where a FlexiCubes step's time goes, sync-bracketed on the trained
+    state: the full-lattice SDF MLP forward and backward, the extraction
+    forward and backward (median of ``reps``), then one whole tick forward
+    (fields, extraction, shadow field, render of every view, losses) and
+    its backward, with the step's peak memory."""
+    import torch
+
+    from gshell_tpu_torch.render.light import update_pdf
+    from gshell_tpu_torch.utils.rng import TorchDraws
+
+    geo, params = rec.geo, state.params_geo
+    g = torch.Generator(geo.device).manual_seed(SEED)
+    times = {k: [] for k in ("mlp_fwd", "mlp_bwd", "extract_fwd", "extract_bwd")}
+    for _ in range(reps):
+        (v_def, sdf, msdf), ms = _sync_ms(lambda: geo.fields(params))
+        times["mlp_fwd"].append(ms)
+        times["mlp_bwd"].append(_sync_ms(lambda: sdf.sum().backward())[1])
+        leaves = [t.detach().requires_grad_(True) for t in (v_def, sdf, msdf, params["cube_weights"])]
+        x, s, nu, w = leaves
+        mesh, ms = _sync_ms(lambda: geo.extractor(x, s, nu, beta=w[:, :12], alpha=w[:, 12:20], gamma=w[:, 20]))
+        times["extract_fwd"].append(ms)
+        loss = (mesh.verts * torch.rand(mesh.verts.shape, generator=g, device=geo.device)).sum() + mesh.l_dev \
+            + mesh.msdf.sum()
+        times["extract_bwd"].append(_sync_ms(lambda: loss.backward())[1])
+    out = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    for p in (t for grp in state.optimizers for pg in grp.param_groups for t in pg["params"]):
+        p.grad = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    draws = TorchDraws(torch.Generator(geo.device).manual_seed(SEED))
+    (img, depth, reg, aux), out["tick_fwd"] = _sync_ms(lambda: geo.tick(
+        draws, params, state.params_mat, rec.mat_cfg, update_pdf(state.light_base), target, 1000, rec.flags,
+        rec.image_loss_fn, shadow_scale=1.0, denoiser_sigma=2.0))
+    out["tick_bwd"] = _sync_ms(lambda: (img + depth + reg).backward())[1]
+    out["tick_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["n_surf_cubes"], out["n_faces"] = int(aux["n_surf_cubes"]), int(aux["n_faces"])
+    return out
+
+
+def flexi_path(smi: str, dev) -> dict:
+    """Phase 9: the skirt → ``train_gshell.main --flexicubes`` with a copy of
+    ``configs/deepfashion_mc_80.json`` (2 iterations, then resumed to 3) →
+    ``eval_reconstruction.main`` (held-out views and Chamfer), each entry
+    point counted and its kernels' first and last launches held against the
+    plain versions at 1024²; then the step's layer split
+    (:func:`flexi_layers`) and both kernels timed at 1024² on the trained
+    mesh.  Returns the phase's record; raises on any failed check."""
+    import shutil
+
+    import torch
+
+    from gshell_tpu_torch import train_gshell
+    from gshell_tpu_torch.ops import denoiser as dn
+    from gshell_tpu_torch.ops import math as gm
+    from gshell_tpu_torch.ops import rasterize as rz
+    from gshell_tpu_torch.render.light import update_pdf
+    from gshell_tpu_torch.render.render import render_mesh
+    from gshell_tpu_torch.train.reconstruct import load_state
+    from gshell_tpu_torch.train.setup import reconstructor_from_flags
+    from gshell_tpu_torch.utils.config import load_flags
+    from gshell_tpu_torch.utils.rng import TorchDraws
+    from gshell_tpu_torch.utils.synthetic_gt import skirt, write_obj
+
+    t_phase = time.time()
+    shutil.rmtree(FLEXI_OUT, ignore_errors=True)
+    os.makedirs(FLEXI_OUT)
+    obj = os.path.join(FLEXI_OUT, "skirt.obj")
+    write_obj(obj, *skirt())
+    with open(FLEXI_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["save_interval"] = 2
+    cfg_path = os.path.join(FLEXI_OUT, "deepfashion_mc_80_smoke.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    run = os.path.join(FLEXI_OUT, "run")
+    state_path = os.path.join(run, "state.pt")
+    common = ["--config", cfg_path, "--ref-mesh", obj, "--out-dir", run, "--log-interval", "1", "--flexicubes",
+              "--device", str(dev)]
+    print("flexi cuts: " + "; ".join(FLEXI_CUTS))
+
+    gt_views, train_gshell.GT_VIEWS = train_gshell.GT_VIEWS, FLEXI_GT_VIEWS
+    try:
+        with KernelTaps() as taps:
+            ep = EntryPoints(taps)
+            first = ep.train(common + ["--iter", "2"], "flexi train (ground truth, then train step 1)")
+            resumed = ep.train(common + ["--iter", "3", "--resume"],
+                               "flexi resumed train (ground truth, then train step 2)")
+            ev = ep.evaluate(["--state", state_path, "--config", cfg_path, "--device", str(dev),
+                              "--synthetic-ref-mesh", obj, "--gt-mesh", obj, "--gt-unit-size",
+                              "--n-views", str(FLEXI_EVAL_VIEWS), "--out-dir", os.path.join(run, "validate")],
+                             f"flexi eval (held-out ground truth, then eval view {FLEXI_EVAL_VIEWS - 1})")
+    finally:
+        train_gshell.GT_VIEWS = gt_views
+    if set(ep.held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+        raise RuntimeError(f"phase 9 held only {sorted(ep.held)} against the plain versions")
+    state_bytes = os.path.getsize(state_path)
+
+    log = first["log"] + resumed["log"]
+    for e in log:
+        print(f"flexi step {e['it']}: total {e['total']:.6f} img {e['img_loss']:.6f} reg {e['reg_loss']:.6f} "
+              f"l_dev {e['l_dev']:.6f} n_surf_cubes {int(e['n_surf_cubes'])} n_crossing_edges "
+              f"{int(e['n_crossing_edges'])} n_faces {int(e['n_faces'])} overflow cube/edge/face "
+              f"{int(e['cube_slot_overflow'])}/{int(e['edge_slot_overflow'])}/{int(e['face_cap_overflow'])} "
+              f"raster_dropped {int(e['raster_dropped'])} px_dropped {int(e['px_dropped'])} nonfinite_grads "
+              f"{int(e['nonfinite_grads'])} splat cells {int(e['splat_cells'])}, "
+              f"{e['splat_samples_per_cell']:.2f} samples/cell, {int(e['splat_singletons'])} singletons | "
+              f"{e['s']:.3f} s/step  [{smi}]")
+    steps = [e["s"] for e in log]
+    rec_out = {
+        "cuts": FLEXI_CUTS, "gt_views": first["gt_views"], "gt_s_per_view": first["gt_seconds"] / first["gt_views"],
+        "gt_s_per_view_resumed": resumed["gt_seconds"] / resumed["gt_views"], "steps_s": steps,
+        "peak_gib": max(first["peak"], resumed["peak"]), "state_bytes": state_bytes,
+        "first_run_seconds": first["seconds"], "resumed_run_seconds": resumed["seconds"],
+        "resumed_at": resumed["start_it"], "eval_seconds": ev["seconds"], "psnr": ev.get("psnr"),
+        "chamfer": ev.get("chamfer"), "final_faces": resumed["final_faces"],
+        "launches": {"flexi_gt_train": first["launches"]["dataset"], "flexi_train": first["launches"]["train"],
+                     "flexi_gt_resumed": resumed["launches"]["dataset"],
+                     "flexi_train_resumed": resumed["launches"]["train"],
+                     "flexi_gt_eval": ev["launches"]["ground_truth"], "flexi_eval": ev["launches"]["synthetic"]},
+        "held_max_abs_err": ep.held,
+    }
+    print(f"flexi ground truth: {first['gt_views']} views at {FLEXI_RES}² in {first['gt_seconds']:.2f} s "
+          f"({rec_out['gt_s_per_view']:.4f} s/view, mesh load included); resumed run "
+          f"{rec_out['gt_s_per_view_resumed']:.4f} s/view  [{smi}]")
+    print(f"flexi train at voxel 80, {FLEXI_RES}², n_samples 24, batch 2: steps {[round(x, 3) for x in steps]} s "
+          f"(the last holds a snapshot); peak memory "
+          f"{rec_out['peak_gib']:.2f} GiB (each train run, ground truth and SDF pretrain included); state.pt "
+          f"{state_bytes} bytes; the first run {first['seconds']:.1f} s (ground truth, SDF pretrain, 2 steps, "
+          f"state), the resumed {resumed['seconds']:.1f} s; resumed at iter {resumed['start_it']}; final OBJ "
+          f"{resumed['final_faces']} faces  [{smi}]")
+    print(f"flexi eval: {ev['seconds']:.2f} s for {FLEXI_EVAL_VIEWS} held-out views + Chamfer; PSNR "
+          f"{ev.get('psnr')} dB, MSE {ev.get('mse')}, Chamfer-L2 {ev.get('chamfer')}  [{smi}]")
+    print(f"flexi launches by path: {json.dumps(rec_out['launches'])}")
+
+    # ---- the step's layers and both kernels at 1024² on the trained state ----
+    flags = load_flags(cfg_path)
+    rec = reconstructor_from_flags(flags, dev)
+    state, _ = load_state(rec, state_path)
+    target = flexi_target(dev)
+    layers = flexi_layers(rec, state, target)
+    rec_out["layers_ms"] = layers
+    print(f"flexi layers at voxel 80 (sync-bracketed): SDF MLP on the {rec.geo.grid.n_verts}-vertex lattice "
+          f"forward {layers['mlp_fwd']:.2f} ms, backward {layers['mlp_bwd']:.2f} ms; extraction forward "
+          f"{layers['extract_fwd']:.2f} ms, backward {layers['extract_bwd']:.2f} ms; one tick at {FLEXI_RES}² "
+          f"batch 2 forward {layers['tick_fwd']:.1f} ms, backward {layers['tick_bwd']:.1f} ms, peak "
+          f"{layers['tick_peak_gib']:.2f} GiB; n_surf_cubes {layers['n_surf_cubes']}, n_faces "
+          f"{layers['n_faces']}  [{smi}]")
+
+    with torch.no_grad():
+        mesh = rec.geo.get_mesh(state.params_geo)
+        v_clip = gm.xfm_points(mesh.verts, target["mvp"][0])
+        bins = rz.bin_pairs(v_clip, mesh.faces, (FLEXI_RES, FLEXI_RES))
+        ep.held["rasterize_stage_b"] = max(ep.held["rasterize_stage_b"], hold_stage_b(
+            f"flexi mesh at {FLEXI_RES}²", (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)))
+        sb = time_stage_b(bins, v_clip, mesh.faces, FLEXI_RES, "the FlexiCubes mesh", smi)
+        bufs = render_mesh(TorchDraws(torch.Generator(dev).manual_seed(SEED)).child("probe"), mesh.verts,
+                           mesh.faces, mesh.v_nrm, mesh.msdf, state.params_mat, rec.mat_cfg, target["mvp"][0],
+                           target["campos"][0], update_pdf(state.light_base), rec.flags._replace(use_denoiser=False))
+        nrm = bufs["normal"][..., 0:3].contiguous()
+        zdz = bufs["z_grad"][..., 0:2].contiguous()
+        col = torch.cat([bufs["diffuse_light"][..., 0:3], bufs["specular_light"][..., 0:3]], -1).contiguous()
+        ep.held["bilateral_accumulate"] = max(ep.held["bilateral_accumulate"], hold_bilateral(
+            f"flexi view at {FLEXI_RES}²", (col, nrm, zdz, 2.0, 11, False),
+            dn.bilateral_accumulate(col, nrm, zdz, 2.0, 11)))
+        st = time_stencil(col, nrm, zdz, smi)
+    rec_out["kernels_1024"] = {"rasterize_stage_b": sb, "bilateral_accumulate": st}
+
+    bad = [f"step {e['it']} {k}" for e in log for k in ("total", "img_loss", "reg_loss", "l_dev") if not _finite(e[k])]
+    bad += [f"step {e['it']}: n_surf_cubes {e['n_surf_cubes']}, n_faces {e['n_faces']}, raster_dropped "
+            f"{e['raster_dropped']}, overflow {e['cube_slot_overflow']}/{e['edge_slot_overflow']}/"
+            f"{e['face_cap_overflow']}" for e in log
+            if e["n_surf_cubes"] <= 0 or e["n_faces"] <= 0 or e["raster_dropped"] != 0
+            or e["cube_slot_overflow"] or e["edge_slot_overflow"] or e["face_cap_overflow"]]
+    if resumed["start_it"] != 2 or [e["it"] for e in resumed["log"]] != [2]:
+        bad.append(f"resumed run started at {resumed['start_it']} ({[e['it'] for e in resumed['log']]})")
+    if resumed["final_faces"] <= 0:
+        bad.append(f"final OBJ has {resumed['final_faces']} faces")
+    if not (_finite(ev.get("psnr")) and _finite(ev.get("chamfer"))):
+        bad.append(f"eval PSNR {ev.get('psnr')}, Chamfer {ev.get('chamfer')}")
+    bad += [f"{path}: {k} not launched" for path, c in rec_out["launches"].items() for k, v in c.items() if v <= 0]
+    rec_out["seconds"] = time.time() - t_phase
+    print(f"flexi phase: {rec_out['seconds']:.1f} s")
+    if bad:
+        raise RuntimeError("phase 9 (FlexiCubes path) failed: " + "; ".join(bad))
+    return rec_out
+
+
 def card_name() -> str:
     """``nvidia-smi``'s name and power limit of the first card."""
     return subprocess.run(
@@ -854,26 +1172,17 @@ def main() -> int:
             v_clip = gm.xfm_points(mesh.verts, target["mvp"][b])
             bins = rz.bin_pairs(v_clip, faces_c, (RES, RES))
             max_err = max(max_err, check_stage_b(f"view {b}", bins))
-        args = (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
-        n_pairs = int(bins.tile_cnt.sum())
-        box_px, inside_px = stage_b_pair_pixels(bins, v_clip, faces_c, RES)
         v_crowd, f_crowd = crowded_tile_mesh(RES)
         crowd = rz.bin_pairs(v_crowd.to(dev), f_crowd.to(dev), (RES, RES))
         max_err = max(max_err, check_stage_b("crowded tile, ties, +-0.0", crowd))
-        k_ms = _device_ms(lambda: rz.rasterize_stage_b(*args))
-        e_ms = _median_ms(lambda: rz.rasterize_stage_b(*args))
-        p_ms = _median_ms(lambda: rz.stage_b_plain(*args))
-        bound, bound_by = stage_b_bound(n_pairs, bins.n_tiles, box_px, inside_px)
-    print(f"stage B at {RES}² (view {BATCH - 1}): {n_pairs} pairs, {n_pairs * 256} pair-pixels, "
-          f"{box_px} in the triangles' boxes, {inside_px} inside all three edges; kernel {k_ms:.4f} ms "
-          f"on the card ({e_ms:.4f} ms called from Python), plain {p_ms:.4f} ms, "
-          f"bound {bound:.5f} ms ({bound_by})  [{smi}]")
+        sb = time_stage_b(bins, v_clip, faces_c, RES, f"view {BATCH - 1}", smi)
     results.append({"name": "rasterize_stage_b", "route": "cuda",
                     "source": "gshell_tpu_torch/csrc/rasterize_stage_b.cu",
                     "replaces": "gshell_tpu/ops/rasterize.py:301", "max_abs_err": max_err,
-                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
-                    "library_ms": None, "eager_ms": e_ms, "cuda_kernels_per_launch": 3,
-                    "pair_px_box": box_px, "pair_px_inside": inside_px})
+                    "ms": sb["ms"], "plain_ms": sb["plain_ms"], "bound_ms": sb["bound_ms"],
+                    "bound_by": sb["bound_by"], "library_ms": None, "eager_ms": sb["eager_ms"],
+                    "cuda_kernels_per_launch": 3, "pair_px_box": sb["pair_px_box"],
+                    "pair_px_inside": sb["pair_px_inside"]})
 
     # ---- phase 4: denoiser kernel vs plain on a real rendered view -------------
     with torch.no_grad():
@@ -896,21 +1205,15 @@ def main() -> int:
                           f"{bad} outside rtol 1e-5 / atol 1e-6")
                     if bad:
                         raise RuntimeError("bilateral kernel disagrees with the plain version")
-            times[c] = (_device_ms(lambda: dn.bilateral_accumulate(col, nrm, zdz, 2.0, 11), k=5),
-                        _median_ms(lambda: dn.bilateral_accumulate(col, nrm, zdz, 2.0, 11)),
-                        _median_ms(lambda: dn.bilateral_plain(col, nrm, zdz, 2.0, 11)),
-                        stencil_bound(RES, RES, 11, c))
-            k_ms, e_ms, p_ms, (bound, bound_by) = times[c]
-            print(f"denoiser at {RES}², r=11, C={c}: kernel {k_ms:.4f} ms on the card "
-                  f"({e_ms:.4f} ms called from Python), plain {p_ms:.4f} ms, "
-                  f"bound {bound:.4f} ms ({bound_by})  [{smi}]")
-    (k_ms, e_ms, p_ms, (bound, bound_by)), (k3_ms, e3_ms, p3_ms, (bound3, _)) = times[6], times[3]
+            times[c] = time_stencil(col, nrm, zdz, smi)
+    st6, st3 = times[6], times[3]
     results.append({"name": "bilateral_accumulate", "route": "cuda",
                     "source": "gshell_tpu_torch/csrc/bilateral.cu",
                     "replaces": "gshell_tpu/ops/denoiser.py:89", "max_abs_err": max(errs),
-                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
-                    "library_ms": None, "eager_ms": e_ms, "channels": 6,
-                    "ms_c3": k3_ms, "eager_ms_c3": e3_ms, "plain_ms_c3": p3_ms, "bound_ms_c3": bound3})
+                    "ms": st6["ms"], "plain_ms": st6["plain_ms"], "bound_ms": st6["bound_ms"],
+                    "bound_by": st6["bound_by"], "library_ms": None, "eager_ms": st6["eager_ms"], "channels": 6,
+                    "ms_c3": st3["ms"], "eager_ms_c3": st3["eager_ms"], "plain_ms_c3": st3["plain_ms"],
+                    "bound_ms_c3": st3["bound_ms"]})
 
     # ---- phase 5: a small step on the card vs the CPU plain path -------------
     _small_step_reference(dev)
@@ -960,7 +1263,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     diffusion = diffusion_path(smi, dev)
 
+    # ---- phase 9: FlexiCubes at the full width of deepfashion_mc_80 -------------
+    torch.cuda.empty_cache()
+    flexi = flexi_path(smi, dev)
+    by_path.update(flexi["launches"])
+    for r in results:
+        name = r["name"]
+        r["max_abs_err"] = max(r["max_abs_err"], flexi["held_max_abs_err"][name])
+        r["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        k = flexi["kernels_1024"][name]
+        r.update({"ms_1024": k["ms"], "eager_ms_1024": k["eager_ms"], "plain_ms_1024": k["plain_ms"],
+                  "bound_ms_1024": k["bound_ms"], "bound_by_1024": k["bound_by"]})
+        if min(r["launches_by_path"].values()) == 0:
+            raise RuntimeError(f"{name} was not launched on every path: {r['launches_by_path']}")
+    del flexi["held_max_abs_err"]
+
     print(json.dumps({"diffusion": diffusion}))
+    print(json.dumps({"flexicubes": flexi}))
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,12 @@ def _t(a, device):
 
 
 def params_geo_from_jax(params_geo: dict, device) -> dict:
-    """Geometry parameters: ``deform``, then a direct ``sdf`` or an
-    ``sdf_net`` MLP, and a direct ``msdf`` or an ``msdf_net`` MLP, as the
-    JAX state holds them."""
+    """Geometry parameters: ``deform``, FlexiCubes' ``cube_weights`` where
+    the state has them, then a direct ``sdf`` or an ``sdf_net`` MLP, and a
+    direct ``msdf`` or an ``msdf_net`` MLP, as the JAX state holds them."""
     out = {"deform": _t(params_geo["deform"], device)}
+    if "cube_weights" in params_geo:
+        out["cube_weights"] = _t(params_geo["cube_weights"], device)
     for name in ("sdf", "msdf"):
         if name in params_geo:
             out[name] = _t(params_geo[name], device)

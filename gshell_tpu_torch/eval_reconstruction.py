@@ -13,7 +13,9 @@ material; ``--testset-path`` reads a DeepFashion test split.  When the run
 trained against shadowed ground truth (``gt_shadows``), the fitted model is
 rendered under the shadow field of its own cut-mesh splat, as in training.
 ``metrics.txt`` (and with ``--dump-images`` the ``val_*.png`` triptychs) go
-to ``--out-dir``.  Runs on ``--device cuda`` unless given ``--device cpu``.
+to ``--out-dir``.  A FlexiCubes state (one with per-cube weights) is
+evaluated on its FlexiCubes mesh, whatever the config's ``use_flexicubes``.
+Runs on ``--device cuda`` unless given ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -73,6 +75,9 @@ def main(argv=None) -> dict:
     problems = unported_options(flags)
     if problems:
         raise SystemExit(f"{PROG}: not yet ported: " + "; ".join(problems))
+    # the state says which geometry it fits: FlexiCubes keeps per-cube weights
+    record = torch.load(args.state, map_location="cpu", weights_only=True, mmap=True)
+    flags.use_flexicubes = "cube_weights" in record["params_geo"]
     rec = reconstructor_from_flags(flags, device, n_samples=args.spp)
     rflags = rec.flags._replace(shade_budget=None)  # every pixel shaded
     state, _ = load_state(rec, args.state)

@@ -191,94 +191,109 @@ class GShellGeometry:
         """One training evaluation → (img_loss, depth_loss, reg_loss, aux).
         ``target``: 'mvp' (B,4,4), 'campos' (B,3), 'img' (B,H,W,4),
         'background' (B,H,W,3).  Views render one after another."""
-        cfg = self.cfg
         mesh, faces_c, fvalid_c, n_faces, v_nrm = self.extract(params)
-
-        visibility, coverage = None, {}
-        if use_shadows:
-            occ, amin, asz, coverage = self.splat_occupancy(draws.child("splat"), mesh.verts, faces_c,
-                                                            fvalid_c)
-            visibility = make_shadow_field(occ, amin, asz, ko=shadow_ko)
-
-        views = [
-            render_mesh(
-                draws.child(f"view{b}"), mesh.verts, faces_c, v_nrm, mesh.msdf, mat_params,
-                mat_cfg, target["mvp"][b], target["campos"][b], light, flags,
-                background=target["background"][b], visibility=visibility,
-                shadow_scale=shadow_scale, denoiser_sigma=denoiser_sigma,
-            )
-            for b in range(target["mvp"].shape[0])
-        ]
-        buffers = {k: torch.stack([v[k] for v in views]) for k in views[0]}
-
-        color_ref = target["img"]
-        gt_mask = color_ref[..., 3:]
-        shaded = buffers["shaded"]
-        img_loss = torch.mean((shaded[..., 3:] - gt_mask) ** 2)
-        img_loss = img_loss + image_loss_fn(shaded[..., 0:3] * gt_mask, color_ref[..., 0:3] * gt_mask)
-        msdf_img = buffers["msdf_image"]
-        img_loss = img_loss + 5e-1 * torch.mean(torch.abs(torch.clamp(msdf_img, min=0.0) * (gt_mask == 0)))
-        img_loss = img_loss + 5e-1 * torch.mean(
-            torch.abs(torch.clamp(msdf_img, max=0.0) * (gt_mask == 1) - 1.0))
-        depth_loss = torch.zeros((), device=self.device)
-
-        eik_loss = torch.zeros((), device=self.device)
-        if cfg.use_eikonal:
-            pts = sample_surface(draws.child("eik"), mesh.verts.detach(), faces_c,
-                                 cfg.n_eikonal_samples, face_mask=fvalid_c)
-            if cfg.eikonal_scale is None:
-                eik_coeff = 3e-1 if iteration < 500 else (1e-1 if iteration < 2000 else 1e-2)
-            else:
-                eik_coeff = cfg.eikonal_scale
-            pts = pts.detach().requires_grad_(True)
-            out = apply_mlp(params["sdf_net"], pts, cfg.mlp)[:, 0]
-            (grads,) = torch.autograd.grad(out.sum(), pts, create_graph=True)
-            eik_loss = eik_coeff * torch.mean(
-                (torch.sqrt(torch.clamp(torch.sum(grads**2, -1), min=1e-12)) - 1.0) ** 2)
-
-        regscale = (64.0 / cfg.grid_res) ** 3
-        eps = 1e-3
-
-        def huber(d):
-            return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
-
-        msdf_reg = torch.zeros((), device=self.device)
-        if cfg.msdf_reg_open_scale > 0:
-            d = torch.abs(torch.clamp(mesh.msdf, min=-eps) + eps)
-            msdf_reg = msdf_reg + cfg.msdf_reg_open_scale * regscale * huber(d).sum()
-        if cfg.msdf_reg_close_scale != 0:
-            vis_any = torch.any(buffers["visible_vert_mask"], dim=0)
-            vis_boundary = vis_any[mesh.n_verts_watertight:].to(mesh.msdf.dtype)
-            d = torch.abs(torch.clamp(mesh.msdf_boundary, max=eps) - eps)
-            msdf_reg = msdf_reg + cfg.msdf_reg_close_scale * regscale * torch.sum(huber(d) * vis_boundary)
-
-        t_iter = iteration / cfg.total_iters
-        sdf_weight = cfg.sdf_regularizer - (cfg.sdf_regularizer - 0.01) * min(1.0, 4.0 * t_iter)
-        sdf_reg = reg.sdf_reg_loss_edges(mesh.edge_sdf) * sdf_weight
-
-        shading_reg = reg.shading_loss(
-            buffers["diffuse_light"], buffers["specular_light"], color_ref,
-            cfg.lambda_diffuse, cfg.lambda_specular,
-        )
-        shading_reg = shading_reg + reg.material_smoothness_grad(
-            buffers["kd_grad"], buffers["ks_grad"], buffers["normal_grad"],
-            lambda_kd=cfg.lambda_kd, lambda_ks=cfg.lambda_ks, lambda_nrm=cfg.lambda_nrm,
-        )
-        shading_reg = shading_reg + reg.chroma_loss(buffers["kd"], color_ref, cfg.lambda_chroma)
-
-        reg_loss = sdf_reg + eik_loss + msdf_reg + shading_reg
+        img_loss, terms, aux = render_and_score(
+            self, draws, params, mesh, faces_c, fvalid_c, v_nrm, mat_params, mat_cfg, light, target,
+            iteration, flags, image_loss_fn, use_shadows, shadow_scale, denoiser_sigma, shadow_ko)
+        sdf_reg = reg.sdf_reg_loss_edges(mesh.edge_sdf) * sdf_weight(self.cfg, iteration)
+        reg_loss = sdf_reg + terms["eik_loss"] + terms["msdf_reg"] + terms["shading_reg"]
         aux = {
             "n_valid_tets": mesh.n_valid_tets,
             "n_faces": n_faces,
             "n_crossing_edges": mesh.n_crossing_edges,
-            "raster_dropped": torch.stack([torch.as_tensor(v["n_raster_dropped"]) for v in views]).sum(),
             "tet_slot_overflow": (mesh.n_valid_tets >= self.extractor.max_tets).to(torch.int32),
             "edge_slot_overflow": (mesh.n_crossing_edges >= self.extractor.max_verts).to(torch.int32),
-            "px_dropped": buffers["n_px_dropped"].sum(),
             "sdf_reg": sdf_reg,
-            "eik_loss": eik_loss,
-            "msdf_reg": msdf_reg,
-            "shading_reg": shading_reg,
-            **coverage,
+            **terms, **aux,
         }
-        return img_loss, depth_loss, reg_loss, aux
+        return img_loss, torch.zeros((), device=self.device), reg_loss, aux
+
+
+def sdf_weight(cfg, iteration: int) -> float:
+    """The SDF BCE's weight, annealed from ``sdf_regularizer`` to 0.01 over
+    the first quarter of the run."""
+    return cfg.sdf_regularizer - (cfg.sdf_regularizer - 0.01) * min(1.0, 4.0 * (iteration / cfg.total_iters))
+
+
+def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, mat_params: dict, mat_cfg,
+                     light, target: dict, iteration: int, flags: RenderFlags, image_loss_fn: Callable,
+                     use_shadows: bool, shadow_scale: float, denoiser_sigma: float, shadow_ko: int):
+    """What the tets and the FlexiCubes ticks share: the shadow field of the
+    cut mesh's splat (draws ``splat``), every view's render (``view{b}``),
+    the image, mask and mSDF-image losses, the eikonal on surface samples
+    (``eik``), the mSDF open / close regularizers and the shading ones.
+    ``mesh`` has ``verts``, ``msdf``, ``msdf_boundary`` and
+    ``n_verts_watertight``.  → (img_loss, {eik_loss, msdf_reg, shading_reg},
+    {raster_dropped, px_dropped, splat coverage})."""
+    cfg, dev = geo.cfg, geo.device
+    visibility, coverage = None, {}
+    if use_shadows:
+        occ, amin, asz, coverage = geo.splat_occupancy(draws.child("splat"), mesh.verts, faces_c, fvalid_c)
+        visibility = make_shadow_field(occ, amin, asz, ko=shadow_ko)
+
+    views = [
+        render_mesh(
+            draws.child(f"view{b}"), mesh.verts, faces_c, v_nrm, mesh.msdf, mat_params,
+            mat_cfg, target["mvp"][b], target["campos"][b], light, flags,
+            background=target["background"][b], visibility=visibility,
+            shadow_scale=shadow_scale, denoiser_sigma=denoiser_sigma,
+        )
+        for b in range(target["mvp"].shape[0])
+    ]
+    buffers = {k: torch.stack([v[k] for v in views]) for k in views[0]}
+
+    color_ref = target["img"]
+    gt_mask = color_ref[..., 3:]
+    shaded = buffers["shaded"]
+    img_loss = torch.mean((shaded[..., 3:] - gt_mask) ** 2)
+    img_loss = img_loss + image_loss_fn(shaded[..., 0:3] * gt_mask, color_ref[..., 0:3] * gt_mask)
+    msdf_img = buffers["msdf_image"]
+    img_loss = img_loss + 5e-1 * torch.mean(torch.abs(torch.clamp(msdf_img, min=0.0) * (gt_mask == 0)))
+    img_loss = img_loss + 5e-1 * torch.mean(
+        torch.abs(torch.clamp(msdf_img, max=0.0) * (gt_mask == 1) - 1.0))
+
+    eik_loss = torch.zeros((), device=dev)
+    if cfg.use_eikonal:
+        pts = sample_surface(draws.child("eik"), mesh.verts.detach(), faces_c,
+                             cfg.n_eikonal_samples, face_mask=fvalid_c)
+        if cfg.eikonal_scale is None:
+            eik_coeff = 3e-1 if iteration < 500 else (1e-1 if iteration < 2000 else 1e-2)
+        else:
+            eik_coeff = cfg.eikonal_scale
+        pts = pts.detach().requires_grad_(True)
+        out = apply_mlp(params["sdf_net"], pts, cfg.mlp)[:, 0]
+        (grads,) = torch.autograd.grad(out.sum(), pts, create_graph=True)
+        eik_loss = eik_coeff * torch.mean(
+            (torch.sqrt(torch.clamp(torch.sum(grads**2, -1), min=1e-12)) - 1.0) ** 2)
+
+    regscale = (64.0 / cfg.grid_res) ** 3
+    eps = 1e-3
+
+    def huber(d):
+        return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+
+    msdf_reg = torch.zeros((), device=dev)
+    if cfg.msdf_reg_open_scale > 0:
+        d = torch.abs(torch.clamp(mesh.msdf, min=-eps) + eps)
+        msdf_reg = msdf_reg + cfg.msdf_reg_open_scale * regscale * huber(d).sum()
+    if cfg.msdf_reg_close_scale != 0:
+        vis_any = torch.any(buffers["visible_vert_mask"], dim=0)
+        vis_boundary = vis_any[mesh.n_verts_watertight:].to(mesh.msdf.dtype)
+        d = torch.abs(torch.clamp(mesh.msdf_boundary, max=eps) - eps)
+        msdf_reg = msdf_reg + cfg.msdf_reg_close_scale * regscale * torch.sum(huber(d) * vis_boundary)
+
+    shading_reg = reg.shading_loss(
+        buffers["diffuse_light"], buffers["specular_light"], color_ref,
+        cfg.lambda_diffuse, cfg.lambda_specular,
+    )
+    shading_reg = shading_reg + reg.material_smoothness_grad(
+        buffers["kd_grad"], buffers["ks_grad"], buffers["normal_grad"],
+        lambda_kd=cfg.lambda_kd, lambda_ks=cfg.lambda_ks, lambda_nrm=cfg.lambda_nrm,
+    )
+    shading_reg = shading_reg + reg.chroma_loss(buffers["kd"], color_ref, cfg.lambda_chroma)
+    aux = {
+        "raster_dropped": torch.stack([torch.as_tensor(v["n_raster_dropped"]) for v in views]).sum(),
+        "px_dropped": buffers["n_px_dropped"].sum(),
+        **coverage,
+    }
+    return img_loss, {"eik_loss": eik_loss, "msdf_reg": msdf_reg, "shading_reg": shading_reg}, aux

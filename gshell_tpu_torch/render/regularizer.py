@@ -50,6 +50,15 @@ def _bce_with_logits(x, y):
     return torch.clamp(x, min=0.0) - x * y + torch.log1p(torch.exp(-torch.abs(x)))
 
 
+def sdf_reg_loss(sdf, grid_edges):
+    """SDF sign-consistency BCE over every lattice edge ``grid_edges`` (E, 2):
+    the mean over the edges whose ends differ in sign (FlexiCubes path)."""
+    s0, s1 = sdf[grid_edges[:, 0]], sdf[grid_edges[:, 1]]
+    mask = (torch.sign(s0) != torch.sign(s1)).to(sdf.dtype)
+    per_edge = _bce_with_logits(s0, (s1 > 0).to(sdf.dtype)) + _bce_with_logits(s1, (s0 > 0).to(sdf.dtype))
+    return (per_edge * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 def sdf_reg_loss_edges(edge_sdf):
     """SDF sign-consistency BCE over the extractor's crossing-edge slots
     (V, 2); invalid slots hold (+1, +1) and mask themselves out."""

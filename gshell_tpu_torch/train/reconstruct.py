@@ -4,8 +4,8 @@
 One ``train_step``: extraction → shadow field → render every view → losses
 → backward → non-finite-gradient zeroing → the reference's gradient tweaks
 (hash tables ÷8, light ×64) → three Adam groups with LR 10^(−0.0002·it) →
-clamps.  Geometry sub-groups: ``deform`` and ``msdf`` at ``lr_pos``,
-``sdf_net`` at ``lr_pos·1e-2``.
+clamps.  Geometry sub-groups: ``deform``, FlexiCubes' ``cube_weights``
+and ``msdf`` at ``lr_pos``, ``sdf_net`` at ``lr_pos·1e-2``.
 
 The main path runs f32 matrix products in full precision: TF32 is switched
 off for cuBLAS and cuDNN when a :class:`Reconstructor` is built."""
@@ -17,7 +17,6 @@ from typing import Optional
 
 import torch
 
-from ..geometry.geometry import GShellGeometry
 from ..ops.image_loss import create_loss
 from ..render.light import update_pdf
 from ..render.material import MLPTexture3DConfig, init_mlp_texture
@@ -35,6 +34,11 @@ class TrainConfig:
     shadow_ramp_iters: int = 1000
     use_shadows: bool = True
     shadow_ko: int = 16
+
+
+# The geometry optimizer's groups, in order, and each one's learning rate as
+# a multiple of lr_pos (FlexiCubes adds ``cube_weights``, trained as ``deform``)
+GEO_LR_SCALE = {"deform": 1.0, "cube_weights": 1.0, "msdf": 1.0, "sdf_net": 1e-2}
 
 
 def lr_factor(count: int) -> float:
@@ -61,7 +65,10 @@ def _leaves(tree):
 
 
 class Reconstructor:
-    def __init__(self, geometry: GShellGeometry, mat_cfg: MLPTexture3DConfig,
+    """The trainer of a tets (``geometry.GShellGeometry``) or a FlexiCubes
+    (``flexi_geometry.GShellFlexiGeometry``) geometry."""
+
+    def __init__(self, geometry, mat_cfg: MLPTexture3DConfig,
                  flags: RenderFlags, tcfg: TrainConfig = TrainConfig()):
         # full-f32 products on the main path (cuBLAS and cuDNN default to TF32
         # in places); the JAX reference computes in f32
@@ -89,19 +96,17 @@ class Reconstructor:
         def leaf(t):
             return t.detach().clone().to(self.device).requires_grad_(True)
 
-        params_geo = {
-            "deform": leaf(params_geo["deform"]),
-            "msdf": leaf(params_geo["msdf"]),
-            "sdf_net": {k: [leaf(t) for t in v] for k, v in params_geo["sdf_net"].items()},
-        }
+        unknown = set(params_geo) - set(GEO_LR_SCALE)
+        if unknown:
+            raise ValueError(f"no optimizer group for the geometry parameters {sorted(unknown)} (ROADMAP D.1)")
+        params_geo = {k: leaf(params_geo[k]) if k != "sdf_net" else
+                      {n: [leaf(t) for t in v] for n, v in params_geo[k].items()}
+                      for k in GEO_LR_SCALE if k in params_geo}
         params_mat = {"tables": leaf(params_mat["tables"]), "mlp": [leaf(w) for w in params_mat["mlp"]]}
         light_base = leaf(light_base)
         t = self.tcfg
-        opt_geo = torch.optim.Adam([
-            {"params": [params_geo["deform"]], "lr": t.lr_pos},
-            {"params": [params_geo["msdf"]], "lr": t.lr_pos},
-            {"params": _leaves(params_geo["sdf_net"]), "lr": t.lr_pos * 1e-2},
-        ], eps=1e-8)
+        opt_geo = torch.optim.Adam([{"params": _leaves(v), "lr": t.lr_pos * GEO_LR_SCALE[k]}
+                                    for k, v in params_geo.items()], eps=1e-8)
         opt_mat = torch.optim.Adam(_leaves(params_mat), lr=t.lr_mat, eps=1e-8)
         opt_lgt = torch.optim.Adam([light_base], lr=self.lr_lgt, eps=1e-8)
         opts = (opt_geo, opt_mat, opt_lgt)

@@ -8,6 +8,7 @@ import argparse
 import numpy as np
 import torch
 
+from ..geometry.flexi_geometry import FlexiGeometryConfig, GShellFlexiGeometry
 from ..geometry.geometry import GeometryConfig, GShellGeometry
 from ..geometry.mlp import MLPConfig
 from ..ops import denoiser as dn
@@ -70,8 +71,6 @@ def resolve_device(name: str, prog: str) -> torch.device:
 def unported_options(flags: Flags) -> list[str]:
     """Config settings the port cannot honour yet, each with its ROADMAP item."""
     out = []
-    if flags.use_flexicubes:
-        out.append("use_flexicubes (FlexiCubes, ROADMAP D.6)")
     if not flags.use_sdf_mlp or flags.use_msdf_mlp:
         out.append("use_sdf_mlp: false / use_msdf_mlp: true (direct-SDF and mSDF-MLP fields, ROADMAP D.1)")
     if flags.use_depth or flags.use_depth_2nd_layer:
@@ -98,10 +97,13 @@ def material_config(flags: Flags) -> MLPTexture3DConfig:
 def reconstructor_from_flags(flags: Flags, device, n_samples: int | None = None) -> Reconstructor:
     """The geometry, material, render flags and trainer a run of ``flags``
     uses (``train_gshell.py``'s settings); ``n_samples`` overrides the
-    config's.  The stage-B kernel has no per-tile cap, so ``max_per_tile``
-    drops nothing."""
-    gcfg = GeometryConfig(
-        grid_res=flags.gshell_grid, scale=flags.mesh_scale, boxscale=tuple(flags.boxscale),
+    config's.  FlexiCubes on the ``voxel_grid`` when ``use_flexicubes`` is
+    set, else marching tets on ``gshell_grid``.  The stage-B kernel has no
+    per-tile cap, so ``max_per_tile`` drops nothing."""
+    flexi = flags.use_flexicubes
+    gcfg = (FlexiGeometryConfig if flexi else GeometryConfig)(
+        grid_res=flags.voxel_grid if flexi else flags.gshell_grid, scale=flags.mesh_scale,
+        boxscale=tuple(flags.boxscale),
         mlp=MLPConfig(n_freq=flags.n_freq, d_hidden=flags.d_hidden, n_hidden=flags.n_hidden,
                       skip_in=tuple(flags.skip_in)),
         msdf_reg_open_scale=flags.msdf_reg_open_scale, msdf_reg_close_scale=flags.msdf_reg_close_scale,
@@ -118,7 +120,8 @@ def reconstructor_from_flags(flags: Flags, device, n_samples: int | None = None)
     lr_pos, lr_mat, lr_lgt = learning_rates(flags)
     tcfg = TrainConfig(lr_pos=lr_pos, lr_mat=lr_mat, lr_lgt=lr_lgt, loss=flags.loss, iters=flags.iter,
                        batch=flags.batch)
-    return Reconstructor(GShellGeometry(gcfg, device), material_config(flags), rflags, tcfg)
+    geo = (GShellFlexiGeometry if flexi else GShellGeometry)(gcfg, device)
+    return Reconstructor(geo, material_config(flags), rflags, tcfg)
 
 
 def gt_light_material(mat_cfg: MLPTexture3DConfig, device):

@@ -6,6 +6,8 @@ Usage:
       --ref-mesh out/skirt.obj --out-dir out/skirt --resume
   python -m gshell_tpu_torch.train_gshell --config configs/deepfashion_mc_256.json \\
       --trainset-path /data/deepfashion3d/30 --out-dir out/df30
+  python -m gshell_tpu_torch.train_gshell --config configs/deepfashion_mc_80.json \\
+      --ref-mesh out/skirt.obj --out-dir out/skirt_flexi
 
 Runs on ``--device cuda`` (the default) through the hand kernels; without a
 card it exits non-zero unless given ``--device cpu``.  Every ``save_interval``
@@ -14,7 +16,9 @@ draw and data streams), ``mesh_{it:06d}.obj`` and, unless
 ``--snapshot-images 0``, ``img_{it:06d}.png``; at the end the final mesh,
 state and ``probe.hdr``.  ``--resume`` continues from ``state.pt`` with the
 same draw and data streams, so a run split in two equals one run straight
-through.  Settings the port cannot honour yet exit non-zero and name their
+through.  ``use_flexicubes`` in the config, or ``--flexicubes``, trains
+G-Shell on FlexiCubes over the config's ``voxel_grid`` (its ``state.pt``
+also holds the per-cube weights and their Adam moments).  Settings the port cannot honour yet exit non-zero and name their
 ROADMAP item.
 """
 from __future__ import annotations
@@ -54,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_samples", type=int, default=None)
     p.add_argument("--log-interval", type=int, default=10)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    add_bool(p, "--flexicubes", help="FlexiCubes geometry (not yet ported: exits)")
+    add_bool(p, "--flexicubes", help="FlexiCubes geometry on the config's voxel_grid (as use_flexicubes)")
     p.add_argument("--bake-texture", type=int, default=0, metavar="RES",
                    help="UV-unwrap and bake kd/ks atlases (not yet ported: exits)")
     add_bool(p, "--snapshot-images", default=True,
@@ -112,10 +116,8 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device, PROG)
     flags = load_flags(args.config, iter=args.iter, batch=args.batch, out_dir=args.out_dir,
                        trainset_path=args.trainset_path, ref_mesh=args.ref_mesh,
-                       n_samples=args.n_samples)
+                       n_samples=args.n_samples, use_flexicubes=args.flexicubes or None)
     problems = unported_options(flags)
-    if args.flexicubes:
-        problems.append("--flexicubes (FlexiCubes, ROADMAP D.6)")
     if args.bake_texture:
         problems.append("--bake-texture (texture bake, ROADMAP D.5)")
     if args.testset_path:
@@ -163,7 +165,7 @@ def main(argv=None) -> dict:
             cover = (f", splat_cells={int(m['splat_cells'])}, splat_spc={m['splat_samples_per_cell']:.2f}, "
                      f"splat_singletons={int(m['splat_singletons'])}") if "splat_cells" in m else ""
             print(f"iter={it:5d}, img_loss={m['img_loss']:.6f}, reg_loss={m['reg_loss']:.6f}, "
-                  f"nactive={int(m['n_valid_tets'])}, n_faces={int(m['n_faces'])}{cover}, "
+                  f"nactive={int(m.get('n_valid_tets', m.get('n_surf_cubes')))}, n_faces={int(m['n_faces'])}{cover}, "
                   f"time={t_hist[-1] * 1000:.1f} ms, rem={rem / 60:.1f} min", flush=True)
             summary["log"].append({"it": it, "s": t_hist[-1], **m})
         if flags.save_interval and it > 0 and it % flags.save_interval == 0:

@@ -153,7 +153,7 @@ def test_splat_coverage_counts_and_unchanged_occupancy():
 
 
 @pytest.mark.parametrize("setting, item", [
-    ({"use_flexicubes": True}, "ROADMAP D.6"), ({"use_sdf_mlp": False}, "ROADMAP D.1"),
+    ({"use_flexicubes": True, "use_img_2nd_layer": True}, "ROADMAP D.5"), ({"use_sdf_mlp": False}, "ROADMAP D.1"),
     ({"use_depth": True}, "ROADMAP D.1"), ({"layers": 2}, "ROADMAP D.5"),
     ({"use_img_2nd_layer": True}, "ROADMAP D.5"), ({"spp": 2}, "ROADMAP D.5"),
     ({"denoiser_demodulate": False}, "ROADMAP D.5"), ({"max_pairs": 4096}, "ROADMAP D.3"),
@@ -169,7 +169,8 @@ def test_unported_settings_exit_and_name_their_item(files, tmp_path, setting, it
         eval_reconstruction.main(["--state", "none.pt", "--config", str(cfg), "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag, item", [(["--flexicubes"], "ROADMAP D.6"), (["--bake-texture", "256"], "ROADMAP D.5")])
+@pytest.mark.parametrize("flag, item", [(["--flexicubes", "--bake-texture", "256"], "ROADMAP D.5"),
+                                        (["--bake-texture", "256"], "ROADMAP D.5")])
 def test_unported_flags_exit(files, flag, item):
     with pytest.raises(SystemExit, match=item):
         train_gshell.main(_train_argv(files, "never", *flag))

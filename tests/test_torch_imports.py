@@ -1,7 +1,10 @@
 """The port imports nothing of JAX or of the JAX package, and its own copies
 of the JAX package's numpy-only grid modules equal the originals.
 
-The import check runs in a fresh interpreter with a ``sys.meta_path`` finder
+The copies are ``tet_tables.py``, ``tet_grid.py`` (numpy path),
+``flexicubes_tables.py``, ``cube_grid.py``, ``utils/config.py``,
+``tools/make_synthetic_gt.py`` and the diffusion dataset helpers.  The
+import check runs in a fresh interpreter with a ``sys.meta_path`` finder
 that raises on ``jax`` / ``jax.*`` / ``jaxlib`` and on ``gshell_tpu`` /
 ``gshell_tpu.*`` (``gshell_tpu_torch`` is allowed), then imports every module
 of ``gshell_tpu_torch`` and ``chip_smoke.py``.  The copies are compared for
@@ -14,8 +17,12 @@ import sys
 import numpy as np
 import pytest
 
+from gshell_tpu.geometry import cube_grid as jcube
+from gshell_tpu.geometry import flexicubes_tables as jflex
 from gshell_tpu.geometry import tet_grid as jgrid
 from gshell_tpu.geometry import tet_tables as jtables
+from gshell_tpu_torch.geometry import cube_grid as tcube
+from gshell_tpu_torch.geometry import flexicubes_tables as tflex
 from gshell_tpu_torch.geometry import tet_grid as tgrid
 from gshell_tpu_torch.geometry import tet_tables as ttables
 
@@ -106,6 +113,50 @@ def test_default_capacities_equal_the_jax_package(res, safety):
     g = jgrid.build_tet_grid(res, build_topology=False)
     assert tgrid.default_capacities(res, g.n_tets, g.n_edges, safety) == \
         jgrid.default_capacities(res, g.n_tets, g.n_edges, safety)
+
+
+def _arrays(m):
+    return {k for k, v in vars(m).items() if isinstance(v, np.ndarray)}
+
+
+@pytest.mark.parametrize("name", sorted(_arrays(jflex)))
+def test_flexicubes_tables_copy_equals_the_jax_package(name):
+    a, b = getattr(tflex, name), getattr(jflex, name)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a, b)
+
+
+def test_flexicubes_tables_and_cube_grid_copies_have_every_table():
+    assert _arrays(tflex) == _arrays(jflex) and _arrays(tcube) == _arrays(jcube)
+    for cls in range(3):
+        for a, b in zip(tcube.EDGE_ADJ_CUBE_OFFSETS[cls], jcube.EDGE_ADJ_CUBE_OFFSETS[cls]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("module, name", [
+    ("flexicubes_tables", "_components"), ("flexicubes_tables", "_patch_groups"),
+    ("flexicubes_tables", "_ambiguous_faces"), ("flexicubes_tables", "_build_tables"),
+    ("cube_grid", "build_cube_grid"), ("cube_grid", "default_cube_capacities"), ("cube_grid", "CubeGrid"),
+])
+def test_flexicubes_copies_have_the_originals_source(module, name):
+    """The port's ``flexicubes_tables.py`` / ``cube_grid.py`` are the JAX
+    package's, function for function (only the module docstring differs)."""
+    import inspect
+
+    ours, orig = ({"flexicubes_tables": tflex, "cube_grid": tcube}[module],
+                  {"flexicubes_tables": jflex, "cube_grid": jcube}[module])
+    assert inspect.getsource(getattr(ours, name)) == inspect.getsource(getattr(orig, name))
+
+
+@pytest.mark.parametrize("res", [1, 4, 12, 80])
+def test_cube_grid_copy_builds_the_jax_package_grid(res):
+    a, b = tcube.build_cube_grid(res), jcube.build_cube_grid(res)
+    for k in ("verts", "cubes", "cube_edges", "edges", "edge_interior", "edge_adj_cubes", "edge_adj_local"):
+        x, y = getattr(a, k), getattr(b, k)
+        assert x.dtype == y.dtype, k
+        np.testing.assert_array_equal(x, y, err_msg=k)
+    assert tcube.default_cube_capacities(res, a.n_cubes, a.n_edges) == \
+        jcube.default_cube_capacities(res, b.n_cubes, b.n_edges)
 
 
 _GUARDED_MAIN = _GUARDED_IMPORT.split("import gshell_tpu_torch")[0] + r"""

@@ -116,3 +116,22 @@ def train_source(key, batch: int):
         return _draw(kind, k, shape, lo, hi)
 
     return source
+
+
+def flexi_train_source(key, batch: int, splat_key):
+    """Replay source for the FlexiCubes tick called with JAX tick ``key``
+    (``GShellFlexiGeometry.tick`` splits it into ``batch`` view keys and an
+    eikonal key) and ``splat_key``, the key a test gave the JAX
+    ``splat_occupancy`` of the occluder it built for that tick."""
+    keys = jax.random.split(key, batch + 1)
+
+    def source(kind, name, shape, lo, hi):
+        top, _, rest = name.partition("/")
+        if top in ("splat", "eik"):
+            k_face, k_uv = jax.random.split(splat_key if top == "splat" else keys[batch])
+            k = k_face if rest == "face" else k_uv
+        else:  # view{b}/...
+            k = view_key_for(keys[int(top[len("view"):])], rest)
+        return _draw(kind, k, shape, lo, hi)
+
+    return source

@@ -3,7 +3,10 @@
 step come from, on one CUDA GPU.
 
 Builds the slice at ``chip_smoke.py``'s working point (512², tet grid 64,
-n_samples 8, batch 2, state step 1000) and prints, each as a JSON line:
+n_samples 8, batch 2, state step 1000), or with ``--flexicubes`` the
+FlexiCubes step at the full width of ``configs/deepfashion_mc_80.json``
+(``chip_smoke.flexi_point``: voxel 80, 1024², n_samples 24, batch 2, state
+step 1000, a disk target), and prints, each as a JSON line:
 
   1. ``first_step``: ``chip_smoke.py``'s first train step (the same draws),
      with its non-finite gradient elements per parameter group and per
@@ -25,8 +28,10 @@ n_samples 8, batch 2, state step 1000) and prints, each as a JSON line:
      step), then of the backward and of the three Adam steps; the second of
      two repetitions.
 
-Usage: ``python3 tools/torch_step_profile.py`` from the repository root.
+Usage: ``python3 tools/torch_step_profile.py [--flexicubes]`` from the
+repository root.
 """
+import argparse
 import collections
 import json
 import os
@@ -102,28 +107,38 @@ def restore(saved):
 
 def grads_by_group(state):
     pg, pm = state.params_geo, state.params_mat
-    return {
+    out = {
         "deform": [pg["deform"]], "msdf": [pg["msdf"]],
         "sdf_net": [p for v in pg["sdf_net"].values() for p in v],
         "tables": [pm["tables"]], "mlp": list(pm["mlp"]), "light": [state.light_base],
     }
+    if "cube_weights" in pg:
+        out["cube_weights"] = [pg["cube_weights"]]
+    return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--flexicubes", action="store_true",
+                   help="the FlexiCubes step of configs/deepfashion_mc_80.json, not the working point")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device found", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
     card = chip_smoke.card_name()
     emit("card", card)
-    rec, state, draws, target = chip_smoke.working_point(dev)
+    rec, state, draws, target = (chip_smoke.flexi_point if args.flexicubes else chip_smoke.working_point)(dev)
     geo, flags = rec.geo, rec.flags
+    emit("workload", {"flexicubes": args.flexicubes, "resolution": list(flags.resolution),
+                      "n_samples": flags.n_samples, "batch": int(target["mvp"].shape[0]),
+                      "grid_res": geo.cfg.grid_res})
 
     # ---- 1. the first step's non-finite gradients ------------------------
     # chip_smoke.py's first train step: the same draws follow its probe render
     with torch.no_grad():
-        mesh, faces_c, _, _, v_nrm = geo.extract(state.params_geo)
-        chip_smoke.probe_view(rec, state, draws, target, mesh, faces_c, v_nrm)
+        mesh = geo.get_mesh(state.params_geo)
+        chip_smoke.probe_view(rec, state, draws, target, mesh, mesh.faces, mesh.v_nrm)
     counts = collections.Counter()
     stages = [(G, "render_mesh"), (G, "make_shadow_field"), (geo, "extract"),
               (R, "interpolate"), (R, "bary_screen_derivs"), (R, "sample_mlp_texture"),
@@ -192,7 +207,8 @@ def main() -> int:
             return out
         return wrapped
 
-    names = {"extract": (geo, "extract"), "shadow occluder splat": (geo, "splat_occupancy"),
+    names = {"extract": (geo, "extract"), "fields (SDF MLP)": (geo, "fields"),
+             "shadow occluder splat": (geo, "splat_occupancy"),
              "shadow field sweep": (G, "make_shadow_field"), "raster A+B+stitch": (R, "rasterize_tiled"),
              "interpolate": (R, "interpolate"), "material": (R, "sample_mlp_texture"),
              "MC shade forward": (R, "env_shade"), "denoiser forward": (R, "bilateral_denoiser"),
