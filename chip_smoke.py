@@ -53,6 +53,22 @@ Runs, in order:
      and a baked grid, which must give the round trip's face count.  Prints
      s/step, peak memory, the snapshot, the analytic FLOPs and TFLOP/s, and
      a ``{"diffusion": ...}`` JSON line.  This path launches neither kernel.
+  9. G-Shell on FlexiCubes at the full width of configs/deepfashion_mc_80.json
+     (voxel 80, 1024², n_samples 24, batch 2; view_batch_mode "map", so no
+     view is recomputed in the backward): train 2 + 1 resumed, eval 4 views; per step the non-finite
+     gradient elements and the SDF MLP's gradient norm (> 0); the step's
+     layers; both kernels held and timed at 1024²; a ``{"flexicubes": ...}``
+     line.
+ 10. the second surface layer: the skirt config at full width with
+     ``layers: 2``, ``use_img_2nd_layer``, ``use_depth`` and
+     ``use_depth_2nd_layer`` (16 two-layer ground-truth views, train 2 + 1
+     resumed, eval 4 views), both kernels held as in phase 7; on one real
+     view of the trained mesh the scan oracle (``rasterize_peel``) against
+     the stage-B kernel's first layer and the binned second layer (taken
+     over the same bins, given the kernel's winners), every differing pixel
+     a depth tie within rounding; the one-layer and two-layer binned passes,
+     the second layer's own pass and the scan timed; a
+     ``{"second_layer": ...}`` line.
 
 Prints a JSON line of per-kernel results (with ``bound_ms``, the least time
 the card could take for the same work, see ``_bound_ms``), the nvidia-smi
@@ -349,7 +365,7 @@ def working_point(dev, seed: int = SEED):
     from gshell_tpu_torch.train.reconstruct import Reconstructor, TrainConfig
     from gshell_tpu_torch.utils.rng import TorchDraws
 
-    gcfg = GeometryConfig(grid_res=GRID, n_eikonal_samples=16384, total_iters=5000)
+    gcfg = GeometryConfig(grid_res=GRID, n_eikonal_samples=16384, total_iters=5000, view_batch_mode="map")
     geo = GShellGeometry(gcfg, dev)
     mat_cfg = MLPTexture3DConfig(channels=6, hash=HashGridConfig(), min_max=default_kd_ks_min_max())
     flags = RenderFlags(resolution=(RES, RES), n_samples=SPP, shade_budget=0.5,
@@ -872,6 +888,10 @@ FLEXI_CONFIG = os.path.join(ROOT, "configs", "deepfashion_mc_80.json")
 FLEXI_OUT = os.path.join(ROOT, "out", "chip_smoke", "flexi")  # gitignored
 FLEXI_RES = 1024
 FLEXI_GT_VIEWS, FLEXI_EVAL_VIEWS = 8, 4
+# The per-view recomputation (view_batch_mode "map_remat", the default)
+# saves no memory at this width and costs about a fifth of a step (PERF.md
+# section 6), so this phase runs "map".
+FLEXI_SETTINGS = {"view_batch_mode": "map"}
 FLEXI_CUTS = ["3 iterations (2, then 1 resumed) in place of 5000",
               f"{FLEXI_GT_VIEWS} ground-truth views in place of 64 (train_gshell.GT_VIEWS)",
               f"{FLEXI_EVAL_VIEWS} held-out eval views in place of 16",
@@ -1003,7 +1023,7 @@ def flexi_path(smi: str, dev) -> dict:
     write_obj(obj, *skirt())
     with open(FLEXI_CONFIG) as f:
         cfg = json.load(f)
-    cfg["save_interval"] = 2
+    cfg.update(FLEXI_SETTINGS, save_interval=2)
     cfg_path = os.path.join(FLEXI_OUT, "deepfashion_mc_80_smoke.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
@@ -1011,7 +1031,7 @@ def flexi_path(smi: str, dev) -> dict:
     state_path = os.path.join(run, "state.pt")
     common = ["--config", cfg_path, "--ref-mesh", obj, "--out-dir", run, "--log-interval", "1", "--flexicubes",
               "--device", str(dev)]
-    print("flexi cuts: " + "; ".join(FLEXI_CUTS))
+    print("flexi cuts: " + "; ".join(FLEXI_CUTS) + f"; settings {json.dumps(FLEXI_SETTINGS)}")
 
     gt_views, train_gshell.GT_VIEWS = train_gshell.GT_VIEWS, FLEXI_GT_VIEWS
     try:
@@ -1037,17 +1057,20 @@ def flexi_path(smi: str, dev) -> dict:
               f"{int(e['n_crossing_edges'])} n_faces {int(e['n_faces'])} overflow cube/edge/face "
               f"{int(e['cube_slot_overflow'])}/{int(e['edge_slot_overflow'])}/{int(e['face_cap_overflow'])} "
               f"raster_dropped {int(e['raster_dropped'])} px_dropped {int(e['px_dropped'])} nonfinite_grads "
-              f"{int(e['nonfinite_grads'])} splat cells {int(e['splat_cells'])}, "
+              f"{int(e['nonfinite_grads'])} sdf_net |grad| {e['sdf_net_grad_norm']:.4e} peak so far "
+              f"{e['peak_gib']:.2f} GiB splat cells {int(e['splat_cells'])}, "
               f"{e['splat_samples_per_cell']:.2f} samples/cell, {int(e['splat_singletons'])} singletons | "
               f"{e['s']:.3f} s/step  [{smi}]")
     steps = [e["s"] for e in log]
     rec_out = {
-        "cuts": FLEXI_CUTS, "gt_views": first["gt_views"], "gt_s_per_view": first["gt_seconds"] / first["gt_views"],
+        "cuts": FLEXI_CUTS, "settings": FLEXI_SETTINGS, "gt_views": first["gt_views"], "gt_s_per_view": first["gt_seconds"] / first["gt_views"],
         "gt_s_per_view_resumed": resumed["gt_seconds"] / resumed["gt_views"], "steps_s": steps,
         "peak_gib": max(first["peak"], resumed["peak"]), "state_bytes": state_bytes,
         "first_run_seconds": first["seconds"], "resumed_run_seconds": resumed["seconds"],
         "resumed_at": resumed["start_it"], "eval_seconds": ev["seconds"], "psnr": ev.get("psnr"),
         "chamfer": ev.get("chamfer"), "final_faces": resumed["final_faces"],
+        "nonfinite_grads": [int(e["nonfinite_grads"]) for e in log],
+        "sdf_net_grad_norm": [e["sdf_net_grad_norm"] for e in log],
         "launches": {"flexi_gt_train": first["launches"]["dataset"], "flexi_train": first["launches"]["train"],
                      "flexi_gt_resumed": resumed["launches"]["dataset"],
                      "flexi_train_resumed": resumed["launches"]["train"],
@@ -1106,6 +1129,8 @@ def flexi_path(smi: str, dev) -> dict:
             f"{e['face_cap_overflow']}" for e in log
             if e["n_surf_cubes"] <= 0 or e["n_faces"] <= 0 or e["raster_dropped"] != 0
             or e["cube_slot_overflow"] or e["edge_slot_overflow"] or e["face_cap_overflow"]]
+    bad += [f"step {e['it']}: sdf_net gradient norm {e['sdf_net_grad_norm']}" for e in log
+            if not e["sdf_net_grad_norm"] > 0]
     if resumed["start_it"] != 2 or [e["it"] for e in resumed["log"]] != [2]:
         bad.append(f"resumed run started at {resumed['start_it']} ({[e['it'] for e in resumed['log']]})")
     if resumed["final_faces"] <= 0:
@@ -1117,6 +1142,170 @@ def flexi_path(smi: str, dev) -> dict:
     print(f"flexi phase: {rec_out['seconds']:.1f} s")
     if bad:
         raise RuntimeError("phase 9 (FlexiCubes path) failed: " + "; ".join(bad))
+    return rec_out
+
+
+# Phase 10: the second surface layer at the full width of the skirt config
+# (configs/synthetic_skirt_512_shadowed.json: 512², tet grid 96, n_samples 8,
+# batch 2, mesh-splat shadows, view_batch_mode "map") with two-layer ground
+# truth and the second-layer image and depth losses.  Only depth is cut:
+SECOND_OUT = os.path.join(ROOT, "out", "chip_smoke", "second_layer")  # gitignored
+SECOND_GT_VIEWS, SECOND_EVAL_VIEWS = 16, 4
+SECOND_SETTINGS = {"layers": 2, "use_img_2nd_layer": True, "use_depth": True, "use_depth_2nd_layer": True}
+SECOND_CUTS = ["3 iterations (2, then 1 resumed) in place of 3000",
+               f"{SECOND_GT_VIEWS} ground-truth views in place of 64 (train_gshell.GT_VIEWS)",
+               f"{SECOND_EVAL_VIEWS} held-out eval views in place of 16"]
+PEEL_TIE_TOL = 1e-6  # |dz| of two candidates that stage B's and the scan's depth rounding may order either way
+
+
+def hold_peel(rec, state, mvp, smi: str) -> dict:
+    """On the view ``mvp`` of the mesh of ``state``: the scan oracle's first
+    two layers (``rasterize_peel``) against the stage-B kernel's raster and
+    the binned two layers (``rasterize_tiled_peel``: stage A once, the
+    kernel, then ``stage_b_second`` given its winners); a pixel may differ
+    only where the two candidates' depths tie within ``PEEL_TIE_TOL``.
+    Times the binned one- and two-layer passes, the second layer's own pass
+    and the scan.  Raises on an unexplained difference."""
+    import torch
+
+    from gshell_tpu_torch.ops import math as gm
+    from gshell_tpu_torch.ops import rasterize as rz
+
+    with torch.no_grad():
+        mesh = rec.geo.get_mesh(state.params_geo)
+        faces = mesh.faces[: int(mesh.n_faces)]
+        v_clip = gm.xfm_points(mesh.verts, mvp)
+        res = tuple(rec.flags.resolution)
+        scan, scan_ms = _sync_ms(lambda: rz.rasterize_peel(v_clip, faces, res, n_layers=2))
+        best = lambda fn: min(_sync_ms(fn)[1] for _ in range(3))
+        kernel = rz.rasterize_tiled(v_clip, faces, res)
+        binned = rz.rasterize_tiled_peel(v_clip, faces, res)
+        bins = rz.bin_pairs(v_clip, faces, res)
+        args = (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
+        first_id = rz.rasterize_stage_b(*args)[1]
+        out = {"faces": int(faces.shape[0]), "scan_ms": scan_ms,
+               "binned_layer1_ms": best(lambda: rz.rasterize_tiled(v_clip, faces, res)),
+               "binned_peel_ms": best(lambda: rz.rasterize_tiled_peel(v_clip, faces, res)),
+               "second_pass_ms": best(lambda: rz.stage_b_second(*args, first_id)),
+               "layer1_px": int((scan[0].tri_id > 0).sum()), "layer2_px": int((scan[1].tri_id > 0).sum()),
+               "stage_b_vs_scan": rz.layer_differences(kernel, scan[0], v_clip, faces, PEEL_TIE_TOL),
+               "binned_layer1_vs_scan": rz.layer_differences(binned[0], scan[0], v_clip, faces, PEEL_TIE_TOL),
+               "binned_layer2_vs_scan": rz.layer_differences(binned[1], scan[1], v_clip, faces, PEEL_TIE_TOL)}
+    print(f"peel at {res[0]}x{res[1]} on the trained mesh ({out['faces']} faces; layer 1 {out['layer1_px']} px, "
+          f"layer 2 {out['layer2_px']} px): stage-B kernel vs scan layer 1 {out['stage_b_vs_scan']}; binned "
+          f"layer 1 {out['binned_layer1_vs_scan']}, layer 2 {out['binned_layer2_vs_scan']} (tie tol "
+          f"{PEEL_TIE_TOL}); binned one-layer pass {out['binned_layer1_ms']:.2f} ms, two-layer pass "
+          f"{out['binned_peel_ms']:.2f} ms (the second layer's own {out['second_pass_ms']:.2f} ms), scan "
+          f"{scan_ms:.1f} ms  [{smi}]")
+    bad = [k for k in ("stage_b_vs_scan", "binned_layer1_vs_scan", "binned_layer2_vs_scan") if out[k]["unexplained"]]
+    if bad or out["layer2_px"] == 0:
+        raise RuntimeError(f"phase 10: the binned layers disagree with the scan oracle beyond ties ({bad}), "
+                           f"or the second layer is empty ({out['layer2_px']} px)")
+    return out
+
+
+def second_layer_path(smi: str, dev) -> dict:
+    """Phase 10: the skirt → ``train_gshell.main`` with the skirt config plus
+    ``SECOND_SETTINGS`` (2 iterations, then resumed to 3) →
+    ``eval_reconstruction.main``, each entry point counted and its kernels'
+    first and last launches held against the plain versions; then
+    :func:`hold_peel` on the trained mesh's front view.  Returns the phase's
+    record; raises on any failed check."""
+    import shutil
+
+    from gshell_tpu_torch import train_gshell
+    from gshell_tpu_torch.train.reconstruct import load_state
+    from gshell_tpu_torch.train.setup import reconstructor_from_flags
+    from gshell_tpu_torch.utils.config import load_flags
+    from gshell_tpu_torch.utils.synthetic_gt import skirt, write_obj
+
+    t_phase = time.time()
+    shutil.rmtree(SECOND_OUT, ignore_errors=True)
+    os.makedirs(SECOND_OUT)
+    obj = os.path.join(SECOND_OUT, "skirt.obj")
+    write_obj(obj, *skirt())
+    with open(CLI_CONFIG) as f:
+        cfg = json.load(f)
+    cfg.update(SECOND_SETTINGS, save_interval=2)
+    cfg_path = os.path.join(SECOND_OUT, "skirt_two_layers.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    run = os.path.join(SECOND_OUT, "run")
+    state_path = os.path.join(run, "state.pt")
+    common = ["--config", cfg_path, "--ref-mesh", obj, "--out-dir", run, "--log-interval", "1",
+              "--device", str(dev)]
+    print("second-layer cuts: " + "; ".join(SECOND_CUTS) + f"; settings {json.dumps(SECOND_SETTINGS)}")
+
+    gt_views, train_gshell.GT_VIEWS = train_gshell.GT_VIEWS, SECOND_GT_VIEWS
+    try:
+        with KernelTaps() as taps:
+            ep = EntryPoints(taps)
+            first = ep.train(common + ["--iter", "2"], "second-layer train (ground truth, then train step 1)")
+            resumed = ep.train(common + ["--iter", "3", "--resume"],
+                               "second-layer resumed train (ground truth, then train step 2)")
+            ev = ep.evaluate(["--state", state_path, "--config", cfg_path, "--device", str(dev),
+                              "--synthetic-ref-mesh", obj, "--gt-mesh", obj, "--gt-unit-size",
+                              "--n-views", str(SECOND_EVAL_VIEWS), "--out-dir", os.path.join(run, "validate")],
+                             f"second-layer eval (held-out ground truth, then eval view {SECOND_EVAL_VIEWS - 1})")
+    finally:
+        train_gshell.GT_VIEWS = gt_views
+    if set(ep.held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+        raise RuntimeError(f"phase 10 held only {sorted(ep.held)} against the plain versions")
+
+    log = first["log"] + resumed["log"]
+    for e in log:
+        print(f"second-layer step {e['it']}: total {e['total']:.6f} img {e['img_loss']:.6f} depth "
+              f"{e['depth_loss']:.6f} reg {e['reg_loss']:.6f} n_valid_tets {int(e['n_valid_tets'])} n_faces "
+              f"{int(e['n_faces'])} overflow tet/edge {int(e['tet_slot_overflow'])}/{int(e['edge_slot_overflow'])} "
+              f"raster_dropped {int(e['raster_dropped'])} px_dropped {int(e['px_dropped'])} nonfinite_grads "
+              f"{int(e['nonfinite_grads'])} sdf_net |grad| {e['sdf_net_grad_norm']:.4e} | {e['s']:.3f} s/step, "
+              f"peak so far {e['peak_gib']:.2f} GiB  [{smi}]")
+    rec_out = {
+        "cuts": SECOND_CUTS, "settings": SECOND_SETTINGS, "gt_views": first["gt_views"],
+        "gt_s_per_view": first["gt_seconds"] / first["gt_views"],
+        "gt_s_per_view_resumed": resumed["gt_seconds"] / resumed["gt_views"],
+        "steps_s": [e["s"] for e in log], "peak_gib": max(first["peak"], resumed["peak"]),
+        "depth_loss": [e["depth_loss"] for e in log], "img_loss": [e["img_loss"] for e in log],
+        "nonfinite_grads": [int(e["nonfinite_grads"]) for e in log],
+        "first_run_seconds": first["seconds"], "resumed_run_seconds": resumed["seconds"],
+        "resumed_at": resumed["start_it"], "eval_seconds": ev["seconds"], "psnr": ev.get("psnr"),
+        "chamfer": ev.get("chamfer"),
+        "launches": {"second_gt_train": first["launches"]["dataset"], "second_train": first["launches"]["train"],
+                     "second_gt_resumed": resumed["launches"]["dataset"],
+                     "second_train_resumed": resumed["launches"]["train"],
+                     "second_gt_eval": ev["launches"]["ground_truth"], "second_eval": ev["launches"]["synthetic"]},
+        "held_max_abs_err": ep.held,
+    }
+    print(f"second-layer ground truth: {first['gt_views']} two-layer views at {RES}² in {first['gt_seconds']:.2f} s "
+          f"({rec_out['gt_s_per_view']:.4f} s/view, mesh load and shadow field included); resumed run "
+          f"{rec_out['gt_s_per_view_resumed']:.4f} s/view  [{smi}]")
+    print(f"second-layer train at grid 96, {RES}², n_samples 8, batch 2: steps "
+          f"{[round(x, 3) for x in rec_out['steps_s']]} s (the last holds a snapshot); peak memory "
+          f"{rec_out['peak_gib']:.2f} GiB (each train run, ground truth and SDF pretrain included); resumed at "
+          f"iter {resumed['start_it']}; eval {ev['seconds']:.2f} s for {SECOND_EVAL_VIEWS} views, PSNR "
+          f"{ev.get('psnr')} dB, Chamfer-L2 {ev.get('chamfer')}  [{smi}]")
+    print(f"second-layer launches by path: {json.dumps(rec_out['launches'])}")
+
+    rec = reconstructor_from_flags(load_flags(cfg_path), dev)
+    state, _ = load_state(rec, state_path)
+    rec_out["peel"] = hold_peel(rec, state, flexi_target(dev, RES)["mvp"][0], smi)
+
+    bad = [f"step {e['it']} {k}" for e in log for k in ("total", "img_loss", "depth_loss", "reg_loss")
+           if not _finite(e[k])]
+    bad += [f"step {e['it']}: depth_loss {e['depth_loss']}" for e in log if not e["depth_loss"] > 0]
+    bad += [f"step {e['it']}: n_faces {e['n_faces']}, raster_dropped {e['raster_dropped']}, px_dropped "
+            f"{e['px_dropped']}, overflow {e['tet_slot_overflow']}/{e['edge_slot_overflow']}" for e in log
+            if e["n_faces"] <= 0 or e["raster_dropped"] or e["px_dropped"] or e["tet_slot_overflow"]
+            or e["edge_slot_overflow"]]
+    if resumed["start_it"] != 2 or [e["it"] for e in resumed["log"]] != [2]:
+        bad.append(f"resumed run started at {resumed['start_it']} ({[e['it'] for e in resumed['log']]})")
+    if not (_finite(ev.get("psnr")) and _finite(ev.get("chamfer"))):
+        bad.append(f"eval PSNR {ev.get('psnr')}, Chamfer {ev.get('chamfer')}")
+    bad += [f"{path}: {k} not launched" for path, c in rec_out["launches"].items() for k, v in c.items() if v <= 0]
+    rec_out["seconds"] = time.time() - t_phase
+    print(f"second-layer phase: {rec_out['seconds']:.1f} s")
+    if bad:
+        raise RuntimeError("phase 10 (second layer) failed: " + "; ".join(bad))
     return rec_out
 
 
@@ -1232,7 +1421,8 @@ def main() -> int:
         m = {k: float(v) for k, v in m.items()}
         sb, bl = rz.stage_b_calls - sb0, dn.bilateral_launches - bl0
         print(f"step {i}: total {m['total']:.6f} img {m['img_loss']:.6f} reg {m['reg_loss']:.6f} "
-              f"nonfinite_grads {int(m['nonfinite_grads'])} n_faces {int(m['n_faces'])} "
+              f"nonfinite_grads {int(m['nonfinite_grads'])} sdf_net |grad| {m['sdf_net_grad_norm']:.4e} "
+              f"n_faces {int(m['n_faces'])} "
               f"px_dropped {int(m['px_dropped'])} raster_dropped {int(m['raster_dropped'])} "
               f"launches stage_b {sb} (3 CUDA kernels each) bilateral {bl} | {dt:.3f} s/step, "
               f"max_mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{smi}]")
@@ -1279,8 +1469,22 @@ def main() -> int:
             raise RuntimeError(f"{name} was not launched on every path: {r['launches_by_path']}")
     del flexi["held_max_abs_err"]
 
+    # ---- phase 10: the second surface layer at the skirt config's full width --
+    torch.cuda.empty_cache()
+    second = second_layer_path(smi, dev)
+    by_path.update(second["launches"])
+    for r in results:
+        name = r["name"]
+        r["max_abs_err"] = max(r["max_abs_err"], second["held_max_abs_err"][name])
+        r["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        if min(r["launches_by_path"].values()) == 0:
+            raise RuntimeError(f"{name} was not launched on every path: {r['launches_by_path']}")
+    del second["held_max_abs_err"]
+
     print(json.dumps({"diffusion": diffusion}))
     print(json.dumps({"flexicubes": flexi}))
+    print(json.dumps({"second_layer": second}))
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from ..ops import math as gmath
 from ..ops.mesh_ops import auto_normals, sample_surface
 from ..ops.shade import make_shadow_field, splat_lattice
-from ..render.render import render_mesh
+from ..render.render import render_mesh, render_second_layer
 from ..utils.image import load_image
 from ..utils.rng import TorchDraws
 
@@ -85,8 +85,8 @@ def resize_image(img: np.ndarray, res) -> np.ndarray:
 
 
 class PosedImageDataset:
-    """Base: (mvp, campos, img) per view on ``device``; iterates random
-    batches."""
+    """Base: (mvp, campos, img) per view on ``device``, and the optional
+    depth and second-layer supervision; iterates random batches."""
 
     def __init__(self, device="cpu"):
         self.device = torch.device(device)
@@ -94,6 +94,9 @@ class PosedImageDataset:
         self.campos: torch.Tensor = None  # (N, 3)
         self.imgs: torch.Tensor = None  # (N, H, W, 4) premultiplied alpha
         self.resolution = None
+        self.invdepths: torch.Tensor | None = None  # (N, H, W, 1)
+        self.imgs_second: torch.Tensor | None = None  # (N, H, W, 4) premultiplied alpha
+        self.invdepths_second: torch.Tensor | None = None  # (N, H, W, 1)
 
     def __len__(self):
         return self.mvp.shape[0]
@@ -105,7 +108,8 @@ class PosedImageDataset:
 
     def batch(self, idx, background: str = "random", rng: np.random.Generator | None = None) -> dict:
         """A training batch: the chosen background mixed into the
-        premultiplied-alpha reference image."""
+        premultiplied-alpha reference image; ``invdepth``, ``img_second``
+        and ``invdepth_second`` as they are, where the dataset has them."""
         rng = rng or np.random.default_rng()
         idx = np.asarray(idx)
         sel = torch.as_tensor(idx, device=self.device)
@@ -118,12 +122,17 @@ class PosedImageDataset:
         else:
             bg = np.zeros((len(idx), h, w, 3), dtype=np.float32)
         bg = torch.as_tensor(bg, device=self.device)
-        return {
+        out = {
             "mvp": self.mvp[sel],
             "campos": self.campos[sel],
             "img": torch.cat([img[..., 0:3] + bg * (1.0 - img[..., 3:]), img[..., 3:]], -1),
             "background": bg,
         }
+        for key, arr in (("invdepth", self.invdepths), ("img_second", self.imgs_second),
+                         ("invdepth_second", self.invdepths_second)):
+            if arr is not None:
+                out[key] = arr[sel]
+        return out
 
     def iterate(self, batch_size: int, steps: int, background="random", seed=0,
                 rng: np.random.Generator | None = None) -> Iterator[dict]:
@@ -207,7 +216,10 @@ class DatasetMesh(PosedImageDataset):
     """Ground truth rendered from a reference mesh: ``n_views`` random
     cameras on a sphere of ``cam_radius`` (from ``default_rng(seed)``), each
     rendered by :func:`render_mesh` on the exact full-image path
-    (``shade_budget=None``, ``jitter_tap_frac=1.0``).
+    (``shade_budget=None``, ``jitter_tap_frac=1.0``), with its inverse
+    depth; with ``layers > 1`` also the second layer
+    (:func:`render_second_layer` on the same path, draws
+    ``view{i}/second/...``) as ``img_second`` / ``invdepth_second``.
 
     ``shadows``: render through the swept shadow field of the mesh's own
     occupancy, a splat of 2^17 surface samples over its bounds padded by
@@ -223,9 +235,6 @@ class DatasetMesh(PosedImageDataset):
                  layers: int = 1, shadows: bool = False, shadow_grid_res: int = 65, draws=None):
         dev = mesh.v_pos.device
         super().__init__(dev)
-        if layers > 1:
-            raise NotImplementedError("second-layer ground truth (layers > 1) is not yet ported "
-                                      "(ROADMAP D.5)")
         flags = flags._replace(shade_budget=None, jitter_tap_frac=1.0)
         draws = draws if draws is not None else TorchDraws(torch.Generator(dev).manual_seed(GT_RENDER_SEED))
         v_pos, t_idx = mesh.v_pos, mesh.t_pos_idx
@@ -248,19 +257,30 @@ class DatasetMesh(PosedImageDataset):
         rng = np.random.default_rng(seed)
         proj = gmath.perspective(np.deg2rad(fovy_deg), w / h, 0.1, 1000.0, device=dev)
         at, up = torch.zeros(3, device=dev), torch.tensor([0.0, 1.0, 0.0], device=dev)
-        mvps, camposs, imgs = [], [], []
+        premultiply = lambda img: torch.cat([img[..., 0:3] * img[..., 3:], img[..., 3:]], -1)
+        mvps, camposs, imgs, invdepths, imgs2, invdepths2 = [], [], [], [], [], []
         for i in range(n_views):
             v = rng.normal(size=3)
             v = v / np.linalg.norm(v)
             eye = torch.as_tensor(v * cam_radius, dtype=torch.float32, device=dev)
             mvp = proj @ gmath.lookat(eye, at, up)
+            vd = draws.child(f"view{i}")
             with torch.no_grad():
-                buf = render_mesh(draws.child(f"view{i}"), v_pos, t_idx, v_nrm, None, mat_params,
-                                  mat_cfg, mvp, eye, light, flags, shadow_scale=shadow_scale,
-                                  visibility=visibility)
-            img = buf["shaded"]
-            imgs.append(torch.cat([img[..., 0:3] * img[..., 3:], img[..., 3:]], -1))
+                buf = render_mesh(vd, v_pos, t_idx, v_nrm, None, mat_params, mat_cfg, mvp, eye, light, flags,
+                                  shadow_scale=shadow_scale, visibility=visibility, n_layers=2 if layers > 1 else 1)
+                if layers > 1:
+                    buf.update(render_second_layer(vd.child("second"), v_pos, t_idx, v_nrm, mat_params,
+                                                   mat_cfg, mvp, eye, light, flags, shadow_scale=shadow_scale,
+                                                   visibility=visibility, rast2=buf.pop("rast_second")))
+            imgs.append(premultiply(buf["shaded"]))
+            invdepths.append(buf["invdepth"][..., 0:1])
+            if layers > 1:
+                imgs2.append(premultiply(buf["shaded_second"]))
+                invdepths2.append(buf["invdepth_second"][..., 0:1])
             mvps.append(mvp)
             camposs.append(eye)
         self.mvp, self.campos, self.imgs = torch.stack(mvps), torch.stack(camposs), torch.stack(imgs)
+        self.invdepths = torch.stack(invdepths)
+        if layers > 1:
+            self.imgs_second, self.invdepths_second = torch.stack(imgs2), torch.stack(invdepths2)
         self.resolution = tuple(flags.resolution)

@@ -24,7 +24,8 @@ from ..ops.mesh_ops import compact_faces
 from ..render import regularizer as reg
 from ..render.render import RenderFlags
 from .cube_grid import build_cube_grid
-from .geometry import CutMesh, GeometryConfig, GShellGeometry, render_and_score, sdf_weight
+from .geometry import (CutMesh, GeometryConfig, GShellGeometry, check_view_batch_mode, render_and_score,
+                       sdf_weight)
 from .gshell_flexicubes import GShellFlexiCubes
 from .mlp import apply_mlp, init_mlp
 
@@ -45,6 +46,7 @@ class GShellFlexiGeometry:
         if not cfg.use_sdf_mlp or cfg.use_msdf_mlp:
             raise ValueError("the port's FlexiCubes geometry trains an SDF MLP and a direct mSDF only "
                              "(ROADMAP D.1)")
+        check_view_batch_mode(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.grid = build_cube_grid(cfg.grid_res)
@@ -126,11 +128,14 @@ class GShellFlexiGeometry:
              denoiser_sigma: float = 2.0, shadow_ko: int = 16):
         """One training evaluation → (img_loss, depth_loss, reg_loss, aux): the
         tets tick's terms, the SDF BCE over every lattice edge, and
-        ``l_dev_weight``·L_dev.  Views render one after another."""
+        ``l_dev_weight``·L_dev.  Views render one after another, each
+        recomputed in the backward under ``view_batch_mode`` "map_remat", as
+        in the tets tick (JAX's FlexiCubes tick always recomputes)."""
         mesh, sdf, faces_c, fvalid_c, n_faces = self.extract(params)
-        img_loss, terms, aux = render_and_score(
+        img_loss, depth_loss, terms, aux = render_and_score(
             self, draws, params, mesh, faces_c, fvalid_c, mesh.v_nrm, mat_params, mat_cfg, light, target,
-            iteration, flags, image_loss_fn, use_shadows, shadow_scale, denoiser_sigma, shadow_ko)
+            iteration, flags, image_loss_fn, use_shadows, shadow_scale, denoiser_sigma, shadow_ko,
+            remat=self.cfg.view_batch_mode == "map_remat")
         sdf_reg = reg.sdf_reg_loss(sdf, self.grid_edges) * sdf_weight(self.cfg, iteration)
         reg_loss = (sdf_reg + terms["eik_loss"] + terms["msdf_reg"] + terms["shading_reg"]
                     + self.cfg.l_dev_weight * mesh.l_dev)
@@ -147,4 +152,4 @@ class GShellFlexiGeometry:
             "sdf_reg": sdf_reg,
             **terms, **aux,
         }
-        return img_loss, torch.zeros((), device=self.device), reg_loss, aux
+        return img_loss, depth_loss, reg_loss, aux

@@ -5,8 +5,9 @@ lazy field gradients).  ``init_params`` and ``fields`` also serve a direct
 them is not ported.
 
 ``tick`` assembles the reference loss: image + mask loss, mSDF image hinges,
-eikonal on surface samples, mSDF open/close regularizers, the annealed SDF
-sign-consistency BCE, and the shading / material regularizers."""
+the second layer's image loss and the depth terms when the config asks for
+them, eikonal on surface samples, mSDF open/close regularizers, the annealed
+SDF sign-consistency BCE, and the shading / material regularizers."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,11 +15,12 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.mesh_ops import auto_normals, compact_faces, sample_surface
 from ..ops.shade import make_shadow_field, splat_lattice
 from ..render import regularizer as reg
-from ..render.render import RenderFlags, render_mesh
+from ..render.render import RenderFlags, render_mesh, render_second_layer
 from .gshell_tets import GShellTets
 from .mlp import MLPConfig, apply_mlp, init_mlp
 from .tet_grid import build_tet_grid, default_capacities
@@ -45,7 +47,17 @@ class GeometryConfig:
     lambda_specular: float = 0.0025
     use_eikonal: bool = True
     n_eikonal_samples: int = 50000
+    # depth and second-layer supervision (the reference's FLAGS use_depth,
+    # use_img_2nd_layer, use_depth_2nd_layer)
+    use_depth: bool = False
+    use_img_2nd_layer: bool = False
+    use_depth_2nd_layer: bool = False
     total_iters: int = 5000
+    # how a batch of views renders: one after another, each view's render
+    # recomputed in the backward ("map_remat") or its residuals kept ("map";
+    # "vmap" is the same loop), in both ticks (JAX's FlexiCubes tick always
+    # recomputes)
+    view_batch_mode: str = "map_remat"
     capacity_safety: float = 1.0
     max_tets: Optional[int] = None
     max_verts: Optional[int] = None
@@ -71,6 +83,7 @@ class GShellGeometry:
     _FIELD_CHUNK = 1 << 19
 
     def __init__(self, cfg: GeometryConfig, device):
+        check_view_batch_mode(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.grid = build_tet_grid(cfg.grid_res, build_topology=False)
@@ -190,11 +203,15 @@ class GShellGeometry:
              denoiser_sigma: float = 2.0, shadow_ko: int = 16):
         """One training evaluation → (img_loss, depth_loss, reg_loss, aux).
         ``target``: 'mvp' (B,4,4), 'campos' (B,3), 'img' (B,H,W,4),
-        'background' (B,H,W,3).  Views render one after another."""
+        'background' (B,H,W,3); 'invdepth' (B,H,W,1), 'img_second'
+        (B,H,W,4) and 'invdepth_second' (B,H,W,1) for the supervision the
+        config turns on.  Views render one after another, each recomputed
+        in the backward under ``view_batch_mode`` "map_remat"."""
         mesh, faces_c, fvalid_c, n_faces, v_nrm = self.extract(params)
-        img_loss, terms, aux = render_and_score(
+        img_loss, depth_loss, terms, aux = render_and_score(
             self, draws, params, mesh, faces_c, fvalid_c, v_nrm, mat_params, mat_cfg, light, target,
-            iteration, flags, image_loss_fn, use_shadows, shadow_scale, denoiser_sigma, shadow_ko)
+            iteration, flags, image_loss_fn, use_shadows, shadow_scale, denoiser_sigma, shadow_ko,
+            remat=self.cfg.view_batch_mode == "map_remat")
         sdf_reg = reg.sdf_reg_loss_edges(mesh.edge_sdf) * sdf_weight(self.cfg, iteration)
         reg_loss = sdf_reg + terms["eik_loss"] + terms["msdf_reg"] + terms["shading_reg"]
         aux = {
@@ -206,7 +223,15 @@ class GShellGeometry:
             "sdf_reg": sdf_reg,
             **terms, **aux,
         }
-        return img_loss, torch.zeros((), device=self.device), reg_loss, aux
+        return img_loss, depth_loss, reg_loss, aux
+
+
+VIEW_BATCH_MODES = ("map_remat", "map", "vmap")
+
+
+def check_view_batch_mode(cfg) -> None:
+    if cfg.view_batch_mode not in VIEW_BATCH_MODES:
+        raise ValueError(f"view_batch_mode {cfg.view_batch_mode!r}: one of {', '.join(VIEW_BATCH_MODES)}")
 
 
 def sdf_weight(cfg, iteration: int) -> float:
@@ -215,32 +240,73 @@ def sdf_weight(cfg, iteration: int) -> float:
     return cfg.sdf_regularizer - (cfg.sdf_regularizer - 0.01) * min(1.0, 4.0 * (iteration / cfg.total_iters))
 
 
+def checkpoint_draws(fn, draws):
+    """``fn()`` under a non-reentrant ``torch.utils.checkpoint``: its
+    activations are dropped and ``fn`` runs again in the backward.  Its
+    random draws replay: a generator-backed ``draws`` is put back to the
+    state it had before ``fn`` for the recomputation, then to where the
+    recomputation found it, so the recomputed forward draws the same
+    numbers and later draws do not shift.  (``checkpoint``'s own RNG
+    preservation covers the global generators only, not an explicit one.)"""
+    gen = getattr(draws, "gen", None)
+    if gen is None:  # ReplayDraws: the same numbers by name on every call
+        return checkpoint(fn, use_reentrant=False, preserve_rng_state=False)
+    start, calls = gen.get_state(), [0]
+
+    def run():
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn()
+        now = gen.get_state()
+        gen.set_state(start)
+        try:
+            return fn()
+        finally:
+            gen.set_state(now)
+
+    return checkpoint(run, use_reentrant=False, preserve_rng_state=False)
+
+
 def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, mat_params: dict, mat_cfg,
                      light, target: dict, iteration: int, flags: RenderFlags, image_loss_fn: Callable,
-                     use_shadows: bool, shadow_scale: float, denoiser_sigma: float, shadow_ko: int):
+                     use_shadows: bool, shadow_scale: float, denoiser_sigma: float, shadow_ko: int,
+                     remat: bool = False):
     """What the tets and the FlexiCubes ticks share: the shadow field of the
-    cut mesh's splat (draws ``splat``), every view's render (``view{b}``),
-    the image, mask and mSDF-image losses, the eikonal on surface samples
-    (``eik``), the mSDF open / close regularizers and the shading ones.
-    ``mesh`` has ``verts``, ``msdf``, ``msdf_boundary`` and
-    ``n_verts_watertight``.  → (img_loss, {eik_loss, msdf_reg, shading_reg},
-    {raster_dropped, px_dropped, splat coverage})."""
+    cut mesh's splat (draws ``splat``), every view's render (``view{b}``;
+    its second layer, when the config's ``use_img_2nd_layer`` or
+    ``use_depth_2nd_layer`` asks for it, ``view{b}/second``), under
+    :func:`checkpoint_draws` when ``remat`` and there is more than one view,
+    the image, mask, mSDF-image, second-layer image and depth losses, the
+    eikonal on surface samples (``eik``), the mSDF open / close
+    regularizers and the shading ones.  ``mesh`` has ``verts``, ``msdf``,
+    ``msdf_boundary`` and ``n_verts_watertight``.  → (img_loss, depth_loss,
+    {eik_loss, msdf_reg, shading_reg}, {raster_dropped, px_dropped, splat
+    coverage})."""
     cfg, dev = geo.cfg, geo.device
     visibility, coverage = None, {}
     if use_shadows:
         occ, amin, asz, coverage = geo.splat_occupancy(draws.child("splat"), mesh.verts, faces_c, fvalid_c)
         visibility = make_shadow_field(occ, amin, asz, ko=shadow_ko)
+    second = cfg.use_img_2nd_layer or cfg.use_depth_2nd_layer
+    n_views = target["mvp"].shape[0]
 
-    views = [
-        render_mesh(
-            draws.child(f"view{b}"), mesh.verts, faces_c, v_nrm, mesh.msdf, mat_params,
-            mat_cfg, target["mvp"][b], target["campos"][b], light, flags,
-            background=target["background"][b], visibility=visibility,
-            shadow_scale=shadow_scale, denoiser_sigma=denoiser_sigma,
-        )
-        for b in range(target["mvp"].shape[0])
-    ]
-    buffers = {k: torch.stack([v[k] for v in views]) for k in views[0]}
+    def render(b):
+        vd = draws.child(f"view{b}")
+        mvp, campos, bg = target["mvp"][b], target["campos"][b], target["background"][b]
+        buf = render_mesh(vd, mesh.verts, faces_c, v_nrm, mesh.msdf, mat_params, mat_cfg, mvp, campos, light,
+                          flags, background=bg, visibility=visibility, shadow_scale=shadow_scale,
+                          denoiser_sigma=denoiser_sigma, n_layers=2 if second else 1)
+        if second:
+            buf.update(render_second_layer(vd.child("second"), mesh.verts, faces_c, v_nrm, mat_params, mat_cfg,
+                                           mvp, campos, light, flags, background=bg, visibility=visibility,
+                                           shadow_scale=shadow_scale, rast2=buf.pop("rast_second")))
+        return buf
+
+    if remat and n_views > 1:
+        views = [checkpoint_draws(lambda b=b: render(b), draws) for b in range(n_views)]
+    else:
+        views = [render(b) for b in range(n_views)]
+    buffers = {k: torch.stack([torch.as_tensor(v[k], device=dev) for v in views]) for k in views[0]}
 
     color_ref = target["img"]
     gt_mask = color_ref[..., 3:]
@@ -251,6 +317,8 @@ def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, m
     img_loss = img_loss + 5e-1 * torch.mean(torch.abs(torch.clamp(msdf_img, min=0.0) * (gt_mask == 0)))
     img_loss = img_loss + 5e-1 * torch.mean(
         torch.abs(torch.clamp(msdf_img, max=0.0) * (gt_mask == 1) - 1.0))
+    img_extra, depth_loss = reg.second_layer_and_depth_losses(cfg, buffers, target, image_loss_fn)
+    img_loss = img_loss + img_extra
 
     eik_loss = torch.zeros((), device=dev)
     if cfg.use_eikonal:
@@ -291,9 +359,10 @@ def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, m
         lambda_kd=cfg.lambda_kd, lambda_ks=cfg.lambda_ks, lambda_nrm=cfg.lambda_nrm,
     )
     shading_reg = shading_reg + reg.chroma_loss(buffers["kd"], color_ref, cfg.lambda_chroma)
+    dropped = lambda k: buffers[k].sum() if k in buffers else 0
     aux = {
-        "raster_dropped": torch.stack([torch.as_tensor(v["n_raster_dropped"]) for v in views]).sum(),
-        "px_dropped": buffers["n_px_dropped"].sum(),
+        "raster_dropped": dropped("n_raster_dropped"),
+        "px_dropped": dropped("n_px_dropped") + dropped("n_px_dropped_second"),
         **coverage,
     }
-    return img_loss, {"eik_loss": eik_loss, "msdf_reg": msdf_reg, "shading_reg": shading_reg}, aux
+    return img_loss, depth_loss, {"eik_loss": eik_loss, "msdf_reg": msdf_reg, "shading_reg": shading_reg}, aux

@@ -28,25 +28,14 @@ def abs_tie_up(x):
     return torch.where(x >= 0, x, -x)
 
 
-class _Maximum0(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return torch.clamp(x, min=0.0)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return g * torch.where(x > 0, 1.0, torch.where(x == 0, 0.5, 0.0))
-
-
-def maximum0(x):
-    """max(x, 0) with ``jnp.maximum(0, x)``'s derivative: the cotangent is
-    multiplied by 1, ½ (tie) or 0, so an infinite cotangent (from a sqrt at
-    0) becomes NaN where x < 0, as in JAX; ``torch.clamp`` selects it away
-    to 0.  Keeps the non-finite gradients that the train step zeroes and
-    counts the same as the JAX package's."""
-    return _Maximum0.apply(x)
+def sqrt_nonneg(x):
+    """sqrt(max(x, 0)) whose derivative is 0 where x <= 0.  The forward
+    equals ``jnp.sqrt(jnp.maximum(0, x))`` bit for bit; JAX's derivative is
+    infinite at 0 and NaN below it (0 · ∞), which made every GGX-VNDF sample
+    on the rim of the disk poison the gradient of everything upstream.  A
+    deliberate difference from the JAX package (ROADMAP C)."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def reflect(x, n):

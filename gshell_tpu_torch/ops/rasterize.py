@@ -1,12 +1,20 @@
 """Differentiable binned rasterizer: coverage, interpolation, antialias.
 
-PyTorch counterpart of ``gshell_tpu/ops/rasterize.py`` (tiled path only).
+PyTorch counterpart of ``gshell_tpu/ops/rasterize.py``.
 
+  * ``rasterize`` / ``rasterize_peel`` — the exact scan over face chunks, the
+    oracle: per pixel the ``n_layers`` least (depth, id) pairs.  Plain
+    PyTorch; the renderer takes it where the resolution is not a multiple of
+    the tile.
   * ``rasterize_tiled`` — stage A bins (triangle, tile) pairs with sorts and
     cumulative sums; stage B (:func:`rasterize_stage_b`) finds each pixel's
     nearest covering triangle.  On a CUDA tensor stage B is the hand-written
     kernel ``csrc/rasterize_stage_b.cu``; on a CPU tensor it is the plain
-    PyTorch version beside it.  Outputs are discrete and carry no gradient.
+    PyTorch version beside it.
+  * ``rasterize_tiled_peel`` — that first layer and, over the same tile
+    segments, the second (:func:`stage_b_second`, plain PyTorch), the
+    surface the renderer's second layer shades.  Outputs are discrete and
+    carry no gradient.
   * ``interpolate`` / ``bary_screen_derivs`` re-derive barycentrics from
     ``v_clip`` so gradients reach vertex positions; ``antialias`` moves
     silhouettes.  Both follow the JAX functions line for line.
@@ -82,18 +90,124 @@ def _edge_coeffs(sx, sy):
 
 
 # ----------------------------------------------------------------------------
+# The scan: exact, every face against every pixel
+# ----------------------------------------------------------------------------
+
+
+def rasterize(v_clip, faces, resolution, chunk: int = 128) -> Rast:
+    """The nearest covering triangle per pixel by the scan (JAX
+    ``rasterize`` :90); ``faces`` (F, 3), degenerate faces never cover."""
+    return rasterize_peel(v_clip, faces, resolution, chunk=chunk, n_layers=1)[0]
+
+
+@torch.no_grad()
+def rasterize_peel(v_clip, faces, resolution, chunk: int = 128, n_layers: int = 1) -> list:
+    """Depth-peeled rasterization (JAX ``rasterize_peel`` :104): the k-th
+    :class:`Rast` holds each pixel's k-th nearest surface.  Faces go in
+    chunks of ``chunk``; each pixel keeps its ``n_layers`` least (z, id)
+    pairs sorted, a candidate entering only where it is strictly less, and
+    within a chunk the first index wins among equal z — so the layers are
+    the lexicographically least (z, id) pairs.  Coverage: orientation-
+    normalised edge functions under the top-left rule; z = Σ (e_k/area)·z_k
+    in [-1, 1]."""
+    h, w = resolution
+    dev = v_clip.device
+    f = faces.shape[0]
+    pad = (-f) % chunk
+    # padded rows gather v_clip[0] three times → zero area → culled
+    faces_p = F.pad(faces, (0, 0, 0, pad))
+    sx, sy, z, _, tri_ok = _tri_screen(v_clip, faces_p, h, w)
+    tri_ok = tri_ok & (torch.arange(faces_p.shape[0], device=dev) < f)
+    a, b, c, area2 = _edge_coeffs(sx, sy)
+    px, py = _pixel_grid(h, w, dev)
+    px, py = px[:, None], py[:, None]
+    nonzero = area2.abs() > 1e-12
+    area_safe = torch.where(nonzero, area2, 1.0)
+    zs = [torch.full((h * w,), _BIG, dtype=torch.float32, device=dev) for _ in range(n_layers)]
+    ids = [torch.full((h * w,), -1, dtype=torch.int64, device=dev) for _ in range(n_layers)]
+    rows = torch.arange(h * w, device=dev)
+    for lo in range(0, faces_p.shape[0], chunk):
+        sl = slice(lo, lo + chunk)
+        s_or = torch.sign(area2[sl])
+        cover = (nonzero[sl] & tri_ok[sl])[None, :]
+        depth = None
+        for k in range(3):
+            ck_a, ck_b = a[sl, k], b[sl, k]
+            e = ck_a * px + ck_b * py + c[sl, k]  # (P, chunk)
+            eo = e * s_or
+            ao, bo = ck_a * s_or, ck_b * s_or
+            on_edge_ok = (ao > 0.0) | ((ao == 0.0) & (bo > 0.0))
+            cover = cover & ((eo > 0.0) | ((eo == 0.0) & on_edge_ok))
+            term = (e / area_safe[sl]) * z[sl, k]
+            depth = term if depth is None else depth + term
+        cover = cover & (depth >= -1.0) & (depth <= 1.0)
+        depth = torch.where(cover, depth, _BIG)
+        for _ in range(n_layers):  # the chunk's n best, merged into the sorted lists
+            k = torch.argmin(depth, dim=-1)
+            cand_z = depth[rows, k]
+            cand_id = lo + k
+            depth[rows, k] = _BIG
+            for l in range(n_layers):
+                better = cand_z < zs[l]
+                zs[l], cand_z = torch.where(better, cand_z, zs[l]), torch.where(better, zs[l], cand_z)
+                ids[l], cand_id = torch.where(better, cand_id, ids[l]), torch.where(better, ids[l], cand_id)
+    out = []
+    for l in range(n_layers):
+        hit = ids[l] >= 0
+        tri_id = torch.where(hit, ids[l] + 1, 0)
+        bary = _recompute_bary(v_clip, faces, tri_id, px[:, 0], py[:, 0], h, w)
+        out.append(Rast(tri_id=tri_id.reshape(h, w), bary=bary.reshape(h, w, 2),
+                        zbuf=torch.where(hit, zs[l], _BIG).reshape(h, w)))
+    return out
+
+
+@torch.no_grad()
+def scan_depth(v_clip, faces, tri_id):
+    """The scan's depth Σ (e_k/area)·z_k of face ``tri_id - 1`` at each
+    pixel of an (H, W) id image (BIG where the id is 0)."""
+    h, w = tri_id.shape
+    ids = tri_id.reshape(-1) - 1
+    sx, sy, z, _, _ = _tri_screen(v_clip, faces[ids.clamp(min=0)], h, w)
+    a, b, c, area2 = _edge_coeffs(sx, sy)
+    px, py = _pixel_grid(h, w, v_clip.device)
+    safe = torch.where(area2.abs() > 1e-12, area2, 1.0)
+    depth = None
+    for k in range(3):
+        term = ((a[:, k] * px + b[:, k] * py + c[:, k]) / safe) * z[:, k]
+        depth = term if depth is None else depth + term
+    return torch.where(ids >= 0, depth, _BIG).reshape(h, w)
+
+
+@torch.no_grad()
+def layer_differences(rast, oracle, v_clip, faces, tol: float = 1e-6) -> dict:
+    """Where ``rast`` picks another triangle than the scan ``oracle`` (same
+    layer): ``differ`` pixels, of which ``ties`` — both candidates' scan
+    depths within ``tol``, or one side a miss and the other's depth within
+    ``tol`` of the [-1, 1] bounds — which a different depth rounding may
+    order either way; ``unexplained`` is the rest."""
+    diff = rast.tri_id != oracle.tri_id
+    za, zb = scan_depth(v_clip, faces, rast.tri_id), scan_depth(v_clip, faces, oracle.tri_id)
+    both = (rast.tri_id > 0) & (oracle.tri_id > 0)
+    hit_z = torch.where(rast.tri_id > 0, za, zb)
+    tie = torch.where(both, (za - zb).abs() <= tol, (hit_z.abs() - 1.0).abs() <= tol)
+    n_diff, n_tie = int(diff.sum()), int((diff & tie).sum())
+    return {"differ": n_diff, "ties": n_tie, "unexplained": n_diff - n_tie}
+
+
+# ----------------------------------------------------------------------------
 # Stage B: the kernel and its plain version
 # ----------------------------------------------------------------------------
 
 
-def _segment_best(pair_data, seg_start, seg_cnt, seg_tile, tx_n: int):
+def _segment_best(pair_data, seg_start, seg_cnt, seg_tile, tx_n: int, exclude=None):
     """Each segment's per-pixel winner over the TILE² pixels of its tile.
 
     Each pair is evaluated against its tile's pixels as a (_CHUNK, TILE²)
     depth block (BIG where not covered); per (segment, pixel) the least depth
     wins (``scatter_reduce amin``), then the least id among the pairs at that
-    depth.  Returns (best_z (n_seg, TILE²) f32, best_id (n_seg, TILE²) int32,
-    -1 = miss)."""
+    depth.  ``exclude`` (n_seg, TILE²) int32: a triangle id each pixel skips
+    (the first layer's winner, for the second).  Returns (best_z (n_seg,
+    TILE²) f32, best_id (n_seg, TILE²) int32, -1 = miss)."""
     dev = pair_data.device
     n_seg = seg_cnt.shape[0]
     cnt = seg_cnt.long()
@@ -132,8 +246,11 @@ def _segment_best(pair_data, seg_start, seg_cnt, seg_tile, tx_n: int):
         cover = cover & (depth >= -1.0) & (depth <= 1.0)
         depth = torch.where(cover, depth, _BIG)
         flat = (segs[lo:lo + _CHUNK][:, None] * _PX + lin[None]).reshape(-1)
-        ids = (s[:, 13:14].to(torch.int32) - 1).expand_as(depth)
-        return depth.reshape(-1), flat, ids.reshape(-1)
+        ids = (s[:, 13:14].to(torch.int32) - 1).expand_as(depth).reshape(-1)
+        depth = depth.reshape(-1)
+        if exclude is not None:
+            depth = torch.where(ids == exclude.reshape(-1)[flat], _BIG, depth)
+        return depth, flat, ids
 
     for lo in range(0, total, _CHUNK):  # pass 1: least depth
         depth, flat, _ = chunk_depth(lo)
@@ -155,6 +272,17 @@ def stage_b_plain(pair_data, tile_start, tile_cnt, n_tiles: int, tx_n: int):
     -1 = miss)."""
     tiles = torch.arange(n_tiles, device=pair_data.device)
     return _segment_best(pair_data, tile_start, tile_cnt, tiles, tx_n)
+
+
+def stage_b_second(pair_data, tile_start, tile_cnt, n_tiles: int, tx_n: int, first_id):
+    """The second layer over each tile's whole segment, in plain PyTorch:
+    the least depth, then the least id at it, over the pairs whose id is not
+    the first layer's winner ``first_id`` ((n_tiles, TILE²) int32, stage B's
+    ``best_id``) — the lexicographically second (z, id), as the scan's
+    layer 2.  Depth is stage B's (``depth_num · (1/area)``).  Returns
+    (best_z, best_id) as (n_tiles, TILE²) f32 / int32, -1 = miss."""
+    tiles = torch.arange(n_tiles, device=pair_data.device)
+    return _segment_best(pair_data, tile_start, tile_cnt, tiles, tx_n, exclude=first_id)
 
 
 def stage_b_max_subs(n_tiles: int, max_pairs: int, sub: int = STAGE_B_SUB) -> int:
@@ -290,19 +418,21 @@ class Bins(NamedTuple):
 
 
 @torch.no_grad()
-def bin_pairs(v_clip, faces, resolution) -> Bins:
+def bin_pairs(v_clip, faces, resolution, max_pairs: int | None = None) -> Bins:
     """Stage A of ``rasterize_tiled`` (JAX :474-536): expand each on-screen
     triangle's bounding tile rectangle into (triangle, tile) pairs with no
     host loop, sort the pairs by tile and locate each tile's segment.  The
-    pair buffer holds ``max(8·F, 4096)`` pairs (JAX :487); pairs beyond it
-    are dropped and counted."""
+    pair buffer holds ``max_pairs`` pairs, by default ``min(F·tiles,
+    max(8·F, 4096))`` (JAX :487); pairs beyond it are dropped and counted."""
     h, w = resolution
-    assert h % TILE == 0 and w % TILE == 0
+    if h % TILE or w % TILE:
+        raise ValueError(f"binned rasterization needs a multiple of {TILE}, got {h}x{w}")
     dev = v_clip.device
     ty_n, tx_n = h // TILE, w // TILE
     n_tiles = ty_n * tx_n
     f = faces.shape[0]
-    max_pairs = min(f * n_tiles, max(8 * f, 4096))
+    if max_pairs is None:
+        max_pairs = min(f * n_tiles, max(8 * f, 4096))
 
     sx, sy, z, _, tri_ok = _tri_screen(v_clip, faces, h, w)
     a, b, c, area2 = _edge_coeffs(sx, sy)
@@ -356,20 +486,37 @@ def bin_pairs(v_clip, faces, resolution) -> Bins:
                 n_tiles, tx_n, ty_n, dropped)
 
 
-def rasterize_tiled(v_clip, faces, resolution) -> Rast:
+def rasterize_tiled(v_clip, faces, resolution, max_pairs: int | None = None) -> Rast:
     """Two-stage binned rasterization (JAX ``rasterize_tiled`` :442): stage A
-    :func:`bin_pairs`, stage B :func:`rasterize_stage_b` over each tile's
-    whole segment.  Pairs beyond stage A's buffer are dropped and counted in
-    ``Rast.dropped``."""
+    :func:`bin_pairs` with a buffer of ``max_pairs``, then stage B
+    (:func:`rasterize_stage_b`, the kernel on the card) over each tile's
+    whole segment.  Dropped pairs are counted in ``Rast.dropped``."""
+    return rasterize_tiled_peel(v_clip, faces, resolution, max_pairs, n_layers=1)[0]
+
+
+def rasterize_tiled_peel(v_clip, faces, resolution, max_pairs: int | None = None, n_layers: int = 2) -> list:
+    """The first ``n_layers`` (1 or 2) layers over one stage A's tile
+    segments, as :class:`Rast`: layer 1 from :func:`rasterize_stage_b` (the
+    kernel on the card), layer 2 from :func:`stage_b_second` given layer 1's
+    winners.  Stage A's dropped pairs are counted once, in layer 1's
+    ``dropped``.  The layers equal :func:`rasterize_peel`'s except where two
+    candidates' depths tie within rounding (stage B's depth is ``depth_num
+    · (1/area)``, the scan's Σ (e_k/area)·z_k)."""
+    if n_layers not in (1, 2):
+        raise ValueError(f"n_layers {n_layers}: the binned peel has layers 1 and 2")
     h, w = resolution
-    bins = bin_pairs(v_clip, faces, resolution)
+    bins = bin_pairs(v_clip, faces, resolution, max_pairs)
+    args = (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
     with torch.no_grad():
-        bz, bid = rasterize_stage_b(bins.pair_data, bins.tile_start, bins.tile_cnt,
-                                    bins.n_tiles, bins.tx_n)
+        layers = [rasterize_stage_b(*args)]
+        if n_layers == 2:
+            layers.append(stage_b_second(*args, layers[0][1]))
+    out = []
+    for k, (bz, bid) in enumerate(layers):
         best_id = bid.long()
-        best_z = torch.where(best_id >= 0, bz, _BIG)
-    return _stitch_tiles(best_z, best_id, v_clip, faces, h, w, bins.ty_n, bins.tx_n,
-                         dropped=bins.dropped)
+        out.append(_stitch_tiles(torch.where(best_id >= 0, bz, _BIG), best_id, v_clip, faces, h, w,
+                                 bins.ty_n, bins.tx_n, dropped=bins.dropped if k == 0 else 0))
+    return out
 
 
 def _stitch_tiles(best_z, best_id, v_clip, faces, h, w, ty_n, tx_n, dropped=0) -> Rast:

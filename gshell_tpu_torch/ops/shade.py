@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from ..render.light import EnvLight, eval_light, sample_light
 from .bsdf import lambert, pbr_specular
 from .math import (build_orthonormal_basis, cosine_sample, dir_to_latlong_uv, dot, luminance,
-                   maximum0, safe_normalize)
+                   safe_normalize, sqrt_nonneg)
 
 # ----------------------------------------------------------------------------
 # GGX-VNDF importance sampling
@@ -65,7 +65,7 @@ def _sample_ggx_vndf(alpha, wo_l, ux, uy):
     p2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + vh[..., 2:3])
     p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, 0.0, 1.0)) + s * p2
-    nh = t1 * p1 + t2 * p2 + vh * torch.sqrt(maximum0(1.0 - p1 * p1 - p2 * p2))
+    nh = t1 * p1 + t2 * p2 + vh * sqrt_nonneg(1.0 - p1 * p1 - p2 * p2)
     h = safe_normalize(
         torch.cat([alpha * nh[..., 0:1], alpha * nh[..., 1:2], torch.clamp(nh[..., 2:3], min=0.0)], -1)
     )

@@ -1,10 +1,11 @@
-"""Shading / material / SDF regularizers (PyTorch twin of
-``gshell_tpu/render/regularizer.py``, the terms the train step uses)."""
+"""Shading / material / SDF regularizers and the second-layer and depth
+losses (PyTorch twin of ``gshell_tpu/render/regularizer.py``, the terms the
+train step uses)."""
 from __future__ import annotations
 
 import torch
 
-from ..ops.math import rgb_to_srgb
+from ..ops.math import abs_tie_up, rgb_to_srgb
 
 
 def _luma(x):
@@ -67,3 +68,28 @@ def sdf_reg_loss_edges(edge_sdf):
     mask = ((s0 > 0) != (s1 > 0)).to(edge_sdf.dtype)
     per_edge = _bce_with_logits(s0, p1) + _bce_with_logits(s1, p0)
     return (per_edge * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def second_layer_and_depth_losses(cfg, buffers: dict, target: dict, image_loss_fn):
+    """The second layer's image loss and the depth L1 terms that both ticks
+    add (JAX ``second_layer_and_depth_losses``): with ``use_img_2nd_layer``
+    and ``img_second`` in ``target``, the mask MSE and image loss of
+    ``shaded_second`` against it (weight 1); with ``use_depth`` and
+    ``invdepth``, 100·L1 of the inverse depth, and with
+    ``use_depth_2nd_layer`` and ``invdepth_second`` also 10·L1 of the second
+    layer's (|·| with JAX's derivative +1 at 0).  → (img_loss_extra,
+    depth_loss)."""
+    dev = buffers["shaded"].device
+    img_extra = torch.zeros((), device=dev)
+    if cfg.use_img_2nd_layer and "img_second" in target:
+        ref2, sh2 = target["img_second"], buffers["shaded_second"]
+        img_extra = img_extra + torch.mean((sh2[..., 3:] - ref2[..., 3:]) ** 2)
+        img_extra = img_extra + image_loss_fn(sh2[..., 0:3] * ref2[..., 3:], ref2[..., 0:3] * ref2[..., 3:])
+    depth_loss = torch.zeros((), device=dev)
+    if cfg.use_depth and "invdepth" in target:
+        depth_loss = depth_loss + 100.0 * torch.mean(
+            abs_tie_up(buffers["invdepth"][..., 0:1] - target["invdepth"][..., 0:1]))
+        if cfg.use_depth_2nd_layer and "invdepth_second" in target:
+            depth_loss = depth_loss + 10.0 * torch.mean(
+                abs_tie_up(buffers["invdepth_second"][..., 0:1] - target["invdepth_second"][..., 0:1]))
+    return img_extra, depth_loss

@@ -1,8 +1,10 @@
 """Differentiable mesh → image-buffer rendering (PyTorch twin of
 ``gshell_tpu/render/render.py``, neural-material path): clip transform →
-binned rasterization → G-buffer interpolation → foreground compaction →
-hash-grid material → Monte-Carlo environment shading → bilateral denoise →
-composite + silhouette antialias."""
+binned rasterization (the scan off the 16-pixel tile grid) → G-buffer
+interpolation → foreground compaction → hash-grid material → Monte-Carlo
+environment shading → bilateral denoise → composite + silhouette
+antialias.  :func:`render_second_layer` shades the second-nearest surface
+the same way, without the denoiser."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -13,7 +15,7 @@ from ..ops import bsdf as bsdf_ops
 from ..ops.denoiser import bilateral_denoiser
 from ..ops.math import abs_tie_up, safe_normalize, xfm_points
 from ..ops.mesh_ops import face_normals as compute_face_normals
-from ..ops.rasterize import antialias, bary_screen_derivs, interpolate, rasterize_tiled
+from ..ops.rasterize import TILE, antialias, bary_screen_derivs, interpolate, rasterize_peel, rasterize_tiled_peel
 from ..ops.shade import ShadowField, env_shade
 from .light import EnvLight
 from .material import MLPTexture3DConfig, sample_mlp_texture
@@ -30,6 +32,17 @@ class RenderFlags(NamedTuple):
     mc_block: int = 8
     light_bf16: bool = True
     jitter_tap_frac: float = 0.25
+    max_pairs: int | None = None  # stage A's pair buffer (None: max(8·F, 4096))
+
+
+def rasterize_layers(v_clip, faces, flags: RenderFlags, n_layers: int = 1) -> list:
+    """The first ``n_layers`` (1 or 2) depth layers of a view: the binned
+    peel on the 16-pixel tile grid (stage B, then its second layer over the
+    same segments), else the scan, as JAX's ``render_mesh`` chooses."""
+    h, w = flags.resolution
+    if h % TILE == 0 and w % TILE == 0:
+        return rasterize_tiled_peel(v_clip, faces, (h, w), max_pairs=flags.max_pairs, n_layers=n_layers)
+    return rasterize_peel(v_clip, faces, (h, w), n_layers=n_layers)
 
 
 def _fg_compact_idx(tri_id, p_full: int, budget: float | None):
@@ -90,17 +103,21 @@ def _roll(img, shift):
 def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params: dict, mat_cfg: MLPTexture3DConfig,
                 mvp, campos, light: EnvLight, flags: RenderFlags, background=None,
                 visibility: ShadowField | None = None, shadow_scale: float = 1.0,
-                denoiser_sigma: float = 2.0) -> dict:
+                denoiser_sigma: float = 2.0, n_layers: int = 1) -> dict:
     """Render one view → the reference's buffer dict, (H, W, C) layout.
     Draws (names under ``draws``): ``tangent``, ``jitter_off``, ``jitter``,
-    ``nrm_shift``, ``tex/hashgrid/sel`` and ``shade/...``."""
+    ``nrm_shift``, ``tex/hashgrid/sel`` and ``shade/...``.  With
+    ``n_layers`` 2 the raster peels a second layer from the same bins and
+    stage-B winners, and ``rast_second`` holds it for
+    :func:`render_second_layer`."""
     h, w = flags.resolution
     dev = verts.device
     bsdf = flags.bsdf
 
     # ---- geometry pass ----------------------------------------------------
     v_clip = xfm_points(verts, mvp)
-    rast = rasterize_tiled(v_clip, faces, (h, w))
+    layers = rasterize_layers(v_clip, faces, flags, n_layers)
+    rast = layers[0]
     mask = (rast.tri_id > 0).float()[..., None]
 
     attr_list = [verts, v_nrm, v_clip]
@@ -251,4 +268,69 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params: dict, mat_cfg: MLP
     buffers["visible_vert_mask"] = vis_vert
     buffers["n_raster_dropped"] = rast.dropped
     buffers["n_px_dropped"] = px_dropped
+    if n_layers > 1:
+        buffers["rast_second"] = layers[1]
     return buffers
+
+
+def render_second_layer(draws, verts, faces, v_nrm, mat_params: dict, mat_cfg: MLPTexture3DConfig, mvp, campos,
+                        light: EnvLight, flags: RenderFlags, rast2, background=None,
+                        visibility: ShadowField | None = None, shadow_scale: float = 0.0) -> dict:
+    """The second-nearest surface of each pixel, shaded and composited (JAX
+    ``render_second_layer`` :566, which peels its own raster): ``rast2`` is
+    layer 2 of the view's peel (:func:`rasterize_layers`, or the
+    ``rast_second`` of :func:`render_mesh` with ``n_layers=2``), interpolated
+    position and normal, face normal, random tangents, the shading normal,
+    foreground compaction under ``shade_budget``, the material (exact table
+    gradients), MC env shading without the denoiser, composite and
+    antialias on the layer-2 raster.  Draws: ``tangent`` and ``shade/...``
+    (JAX's ``k_tng, k_shade = split(key)``).  → ``shaded_second`` (H, W, 4),
+    ``invdepth_second`` (H, W, 2) and ``n_px_dropped_second``."""
+    h, w = flags.resolution
+    dev = verts.device
+    v_clip = xfm_points(verts, mvp)
+    mask = (rast2.tri_id > 0).float()[..., None]
+
+    gb_pos = interpolate(verts, rast2, faces, v_clip=v_clip)
+    gb_nrm = interpolate(v_nrm, rast2, faces, v_clip=v_clip)
+    fid = torch.clamp(rast2.tri_id - 1, min=0)
+    gb_geo = compute_face_normals(verts, faces)[fid] * mask
+    noise = safe_normalize(draws.normal("tangent", gb_nrm.shape))
+    gb_tangent = torch.linalg.cross(noise, gb_nrm)
+    view_pos = campos.reshape(1, 1, 3).expand_as(gb_pos)
+    gb_normal = bsdf_ops.prepare_shading_normal(
+        gb_pos, view_pos, None, gb_nrm, gb_tangent, gb_geo, two_sided_shading=True, opengl=True,
+    )
+    p = h * w
+    idx_c, px_dropped2 = _fg_compact_idx(rast2.tri_id, p, flags.shade_budget)
+    if idx_c is not None:
+        perm2, inv2, n_slots2 = idx_c
+        packed = _PermuteCompact.apply(torch.cat([gb_pos, gb_normal, mask], -1).reshape(p, 7),
+                                       perm2, inv2, n_slots2)
+        pos_s, nrm_s, mask_s = packed[:, 0:3], packed[:, 3:6], packed[:, 6:7]
+        view_s = campos.reshape(1, 3).expand_as(pos_s)
+    else:
+        pos_s, nrm_s = gb_pos.reshape(p, 3), gb_normal.reshape(p, 3)
+        mask_s, view_s = mask.reshape(p, 1), view_pos.reshape(p, 3)
+    tex_s = sample_mlp_texture(mat_params, mat_cfg, pos_s)
+    kd_s, ks_s = tex_s[..., 0:3], tex_s[..., 3:6]
+    out = env_shade(
+        draws.child("shade"), mask_s, pos_s + nrm_s * 1e-3, pos_s, nrm_s, view_s, kd_s, ks_s, light,
+        n_samples_x=flags.n_samples, bsdf=flags.bsdf, shadow_scale=shadow_scale, visibility=visibility,
+        mc_block=flags.mc_block, light_bf16=flags.light_bf16,
+    )
+    shaded_rows = out.diffuse * (kd_s * (1.0 - ks_s[..., 2:3])) + out.specular
+    if idx_c is not None:
+        shaded = _PermuteScatter.apply(shaded_rows, perm2, inv2, p).reshape(h, w, 3)
+    else:
+        shaded = shaded_rows.reshape(h, w, 3)
+    if background is None:
+        background = torch.zeros((h, w, 3), device=dev)
+    comp = background * (1.0 - mask) + shaded * mask
+    shaded_aa = antialias(torch.cat([comp, mask], -1), rast2, v_clip, faces)
+    dist = torch.sqrt(torch.clamp(torch.sum((gb_pos - view_pos) ** 2, -1, keepdim=True), min=1e-12))
+    return {
+        "shaded_second": shaded_aa,
+        "invdepth_second": torch.cat([(1.0 / dist) * mask, torch.ones_like(mask)], -1),
+        "n_px_dropped_second": px_dropped2,
+    }

@@ -142,6 +142,9 @@ class Reconstructor:
                 finite = torch.isfinite(p.grad)
                 bad += (~finite).sum()
                 p.grad.copy_(torch.where(finite, p.grad, 0.0))
+            # the SDF MLP's whole gradient, as it reaches Adam
+            sdf_norm = torch.linalg.vector_norm(
+                torch.cat([p.grad.reshape(-1) for p in _leaves(state.params_geo["sdf_net"])]))
             state.params_mat["tables"].grad.mul_(1.0 / 8.0)
             state.light_base.grad.mul_(64.0)
         for opt, sched in zip(state.optimizers, state.schedulers):
@@ -157,6 +160,7 @@ class Reconstructor:
             "depth_loss": depth_loss.detach(),
             "reg_loss": reg_loss.detach(),
             "nonfinite_grads": bad,
+            "sdf_net_grad_norm": sdf_norm,
             **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()},
         }
 

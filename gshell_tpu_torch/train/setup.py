@@ -73,16 +73,10 @@ def unported_options(flags: Flags) -> list[str]:
     out = []
     if not flags.use_sdf_mlp or flags.use_msdf_mlp:
         out.append("use_sdf_mlp: false / use_msdf_mlp: true (direct-SDF and mSDF-MLP fields, ROADMAP D.1)")
-    if flags.use_depth or flags.use_depth_2nd_layer:
-        out.append("use_depth / use_depth_2nd_layer (depth supervision, ROADMAP D.1)")
-    if flags.use_img_2nd_layer or flags.layers > 1:
-        out.append("use_img_2nd_layer / layers > 1 (second layer, ROADMAP D.5)")
     if flags.spp != 1 or not flags.denoiser_demodulate or flags.bsdf not in ("pbr", "diffuse", "white"):
         out.append(f"spp {flags.spp}, denoiser_demodulate {flags.denoiser_demodulate}, bsdf "
                    f"{flags.bsdf!r} (only spp 1, denoising before modulation and the pbr / diffuse / "
                    "white BSDFs are ported; the rest is ROADMAP D.5)")
-    if flags.max_pairs is not None:
-        out.append("max_pairs (the port's stage B has no pair budget, ROADMAP D.3)")
     return out
 
 
@@ -98,8 +92,9 @@ def reconstructor_from_flags(flags: Flags, device, n_samples: int | None = None)
     """The geometry, material, render flags and trainer a run of ``flags``
     uses (``train_gshell.py``'s settings); ``n_samples`` overrides the
     config's.  FlexiCubes on the ``voxel_grid`` when ``use_flexicubes`` is
-    set, else marching tets on ``gshell_grid``.  The stage-B kernel has no
-    per-tile cap, so ``max_per_tile`` drops nothing."""
+    set, else marching tets on ``gshell_grid``.  ``max_pairs`` sizes stage
+    A's pair buffer; the stage-B kernel has no per-tile cap, so
+    ``max_per_tile`` is not read (as on JAX's Pallas path)."""
     flexi = flags.use_flexicubes
     gcfg = (FlexiGeometryConfig if flexi else GeometryConfig)(
         grid_res=flags.voxel_grid if flexi else flags.gshell_grid, scale=flags.mesh_scale,
@@ -110,12 +105,15 @@ def reconstructor_from_flags(flags: Flags, device, n_samples: int | None = None)
         sdf_regularizer=flags.sdf_regularizer, eikonal_scale=flags.eikonal_scale,
         lambda_kd=flags.lambda_kd, lambda_ks=flags.lambda_ks, lambda_nrm=flags.lambda_nrm,
         lambda_chroma=flags.lambda_chroma, lambda_diffuse=flags.lambda_diffuse,
-        lambda_specular=flags.lambda_specular, use_eikonal=flags.use_eikonal, total_iters=flags.iter,
+        lambda_specular=flags.lambda_specular, use_eikonal=flags.use_eikonal, use_depth=flags.use_depth,
+        use_img_2nd_layer=flags.use_img_2nd_layer, use_depth_2nd_layer=flags.use_depth_2nd_layer,
+        total_iters=flags.iter, view_batch_mode=flags.view_batch_mode,
     )
     rflags = RenderFlags(
         resolution=tuple(flags.train_res), n_samples=flags.n_samples if n_samples is None else n_samples,
         bsdf=flags.bsdf,
         use_denoiser=flags.denoiser == "bilateral", shade_budget=flags.shade_budget,
+        max_pairs=flags.max_pairs,
     )
     lr_pos, lr_mat, lr_lgt = learning_rates(flags)
     tcfg = TrainConfig(lr_pos=lr_pos, lr_mat=lr_mat, lr_lgt=lr_lgt, loss=flags.loss, iters=flags.iter,

@@ -159,6 +159,8 @@ def main(argv=None) -> dict:
         m = rec.train_step(state, draws.child(f"step{it}"), target)
         if it % args.log_interval == 0:
             m = {k: float(v) for k, v in m.items()}  # waits for the step
+            if device.type == "cuda":
+                m["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30  # so far in the process
             t_hist.append((time.time() - t0) / args.log_interval)
             t0 = time.time()
             rem = (flags.iter - it) * np.mean(t_hist[-10:])

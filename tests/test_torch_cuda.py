@@ -7,9 +7,12 @@ on a machine that has a GPU and no JAX:
 Without a CUDA device every test skips.  Tolerances: stage B is compared
 bit for bit (ids everywhere, z where hit): the kernel rounds its edge and
 depth arithmetic like PyTorch's eager ops (no FMA contraction), and merges
-the sub-segments of crowded tiles exactly.  The bilateral stencil to rtol
-1e-5 / atol 1e-6: the same taps in the same order, but the kernel's expf and
-the fused sums may round an ulp apart.
+the sub-segments of crowded tiles exactly.  Against the scan oracle
+(``rasterize_peel``) the kernel's layer and the binned second layer may
+pick another triangle only where the two candidates' depths tie within
+1e-6 (stage B's depth is depth_num·(1/area), the scan's Σ (e_k/area)·z_k).
+The bilateral stencil to rtol 1e-5 / atol 1e-6: the same taps in the same
+order, but the kernel's expf and the fused sums may round an ulp apart.
 """
 import math
 
@@ -217,9 +220,10 @@ def test_denoiser_autograd_on_the_card_matches_the_cpu(dev):
 
 
 def test_train_step_on_the_card_runs_through_both_kernels(dev):
-    """A tiny reconstruction step on the card: finite losses, a surface, and
-    one stage-B call and two denoiser launches (forward and backward, both
-    colours in one) per view."""
+    """A tiny reconstruction step on the card with every view's residuals
+    kept (``map``): finite losses, a surface, and one stage-B call and two
+    denoiser launches (forward and backward, both colours in one) per
+    view."""
     from gshell_tpu_torch.geometry.geometry import GeometryConfig, GShellGeometry
     from gshell_tpu_torch.geometry.mlp import MLPConfig
     from gshell_tpu_torch.ops.hashgrid import HashGridConfig
@@ -229,7 +233,7 @@ def test_train_step_on_the_card_runs_through_both_kernels(dev):
     from gshell_tpu_torch.utils.rng import TorchDraws
 
     res, batch = 64, 2
-    geo = GShellGeometry(GeometryConfig(grid_res=16, n_eikonal_samples=512,
+    geo = GShellGeometry(GeometryConfig(grid_res=16, n_eikonal_samples=512, view_batch_mode="map",
                                         mlp=MLPConfig(n_freq=4, d_hidden=64, n_hidden=2, skip_in=(1,))), dev)
     mat = MLPTexture3DConfig(hash=HashGridConfig(n_levels=4, log2_table_size=12, base_resolution=4,
                                                  desired_resolution=64),
@@ -288,3 +292,96 @@ def test_flexicubes_extraction_on_the_card_matches_the_cpu(dev):
     torch.testing.assert_close(k["verts"][used], c["verts"][used], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(k["msdf"][used], c["msdf"][used], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(k["l_dev"], c["l_dev"], rtol=1e-5, atol=0.0)
+
+
+def _skirt_view(res, dev):
+    from gshell_tpu_torch.utils.synthetic_gt import skirt
+
+    v, f = skirt()
+    mvp = perspective(math.radians(45.0)) @ lookat([0.4, 0.9, 2.6], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    return xfm_points(torch.as_tensor(v) * 0.8, mvp).to(dev), torch.as_tensor(f).long().to(dev)
+
+
+@pytest.mark.parametrize("mesh", ["skirt", "crowded"])
+def test_stage_b_kernel_and_binned_second_layer_match_the_scan(dev, mesh):
+    """At 512²: the stage-B kernel's raster and the binned two layers
+    (``rasterize_tiled_peel``: one kernel launch, then the second layer
+    given its winners) against the scan oracle's first two layers on
+    the skirt (12,288 faces, both sides in view) and on the crowded tile
+    (exact depth ties between distinct triangles, which the two depth
+    roundings order either way); the second layer is not empty."""
+    res = 512
+    v_clip, faces = _skirt_view(res, dev) if mesh == "skirt" else (t.to(dev) for t in crowded_tile_mesh(res))
+    scan = rz.rasterize_peel(v_clip, faces, (res, res), n_layers=2)
+    before = rz.stage_b_calls
+    kernel = rz.rasterize_tiled(v_clip, faces, (res, res))
+    torch.cuda.synchronize()
+    assert rz.stage_b_calls == before + 1
+    binned = rz.rasterize_tiled_peel(v_clip, faces, (res, res))
+    torch.cuda.synchronize()
+    assert rz.stage_b_calls == before + 2
+    assert int((scan[1].tri_id > 0).sum()) > 1000
+    for what, a, b in (("kernel", kernel, scan[0]), ("binned 1", binned[0], scan[0]), ("binned 2", binned[1], scan[1])):
+        d = rz.layer_differences(a, b, v_clip, faces, tol=1e-6)
+        assert d["unexplained"] == 0, (what, d)
+    assert torch.equal(binned[0].tri_id, kernel.tri_id)
+
+
+def test_map_remat_matches_map_on_the_card(dev):
+    """The tets tick with the second layer and depth on, at 64², batch 2,
+    under ``map`` and ``map_remat`` from the same generator state: the
+    losses and every gradient agree (the card's atomics sum in another
+    order when a view is recomputed: rtol 1e-5 on the losses, cosine ≥
+    0.99999 per parameter), the generator ends in the same state, and the
+    recomputation launches stage B and the forward stencil once more per
+    view."""
+    from gshell_tpu_torch.geometry.geometry import GeometryConfig, GShellGeometry
+    from gshell_tpu_torch.geometry.mlp import MLPConfig
+    from gshell_tpu_torch.ops.hashgrid import HashGridConfig
+    from gshell_tpu_torch.render.light import update_pdf
+    from gshell_tpu_torch.render.material import MLPTexture3DConfig, default_kd_ks_min_max
+    from gshell_tpu_torch.render.render import RenderFlags
+    from gshell_tpu_torch.train.reconstruct import Reconstructor, TrainConfig
+    from gshell_tpu_torch.utils.rng import TorchDraws
+
+    res, batch = 64, 2
+    mvp = perspective(math.radians(45.0)) @ lookat([0.0, 0.5, 2.5], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    ys, xs = torch.meshgrid(torch.arange(res), torch.arange(res), indexing="ij")
+    r2 = (xs - res / 2) ** 2 + (ys - res / 2) ** 2
+    disk = (r2 < (0.3 * res) ** 2).float()[None, ..., None].repeat(batch, 1, 1, 1)
+    inner = (r2 < (0.2 * res) ** 2).float()[None, ..., None].repeat(batch, 1, 1, 1)
+    target = {k: v.to(dev) for k, v in {
+        "mvp": mvp[None].repeat(batch, 1, 1), "campos": torch.tensor([[0.0, 0.5, 2.5]]).repeat(batch, 1),
+        "img": torch.cat([0.5 * disk.repeat(1, 1, 1, 3), disk], -1), "background": torch.zeros((batch, res, res, 3)),
+        "invdepth": 0.4 * disk, "img_second": torch.cat([0.3 * inner.repeat(1, 1, 1, 3), inner], -1),
+        "invdepth_second": 0.35 * inner}.items()}
+    out = {}
+    for mode in ("map", "map_remat"):
+        geo = GShellGeometry(GeometryConfig(grid_res=16, n_eikonal_samples=512, view_batch_mode=mode, use_depth=True,
+                                            use_img_2nd_layer=True, use_depth_2nd_layer=True,
+                                            mlp=MLPConfig(n_freq=4, d_hidden=64, n_hidden=2, skip_in=(1,))), dev)
+        mat = MLPTexture3DConfig(hash=HashGridConfig(n_levels=4, log2_table_size=12, base_resolution=4,
+                                                     desired_resolution=64),
+                                 internal_dims=16, min_max=default_kd_ks_min_max())
+        rec = Reconstructor(geo, mat, RenderFlags(resolution=(res, res), n_samples=2, shade_budget=0.5, mc_block=2),
+                            TrainConfig(batch=batch))
+        state = rec.init_state(TorchDraws(torch.Generator(dev).manual_seed(0)), pretrain_steps=300)
+        gen = torch.Generator(dev).manual_seed(1)
+        sb, bl = rz.stage_b_calls, dn.bilateral_launches
+        img, depth, reg, _ = geo.tick(TorchDraws(gen), state.params_geo, state.params_mat, mat,
+                                      update_pdf(state.light_base), target, 1000, rec.flags, rec.image_loss_fn,
+                                      shadow_scale=1.0, denoiser_sigma=2.0)
+        (img + depth + reg).backward()
+        torch.cuda.synchronize()
+        leaves = [p for o in state.optimizers for g in o.param_groups for p in g["params"]]
+        out[mode] = ([float(x.detach()) for x in (img, depth, reg)], [p.grad.detach().clone() for p in leaves],
+                     gen.get_state(), rz.stage_b_calls - sb, dn.bilateral_launches - bl)
+    (la, ga, sa, sba, bla), (lb, gb, sbb_state, sbb, blb) = out["map"], out["map_remat"]
+    assert la[1] > 0 and all(math.isfinite(x) for x in la)
+    for a, b in zip(la, lb):
+        assert b == pytest.approx(a, rel=1e-5)
+    for a, b in zip(ga, gb):
+        cos = torch.nn.functional.cosine_similarity(a.reshape(1, -1).double(), b.reshape(1, -1).double()).item()
+        assert cos >= 0.99999 or (a.abs().max() == 0 and b.abs().max() == 0), cos
+    assert torch.equal(sa, sbb_state)
+    assert (sba, bla) == (batch, 2 * batch) and (sbb, blb) == (2 * batch, 3 * batch)

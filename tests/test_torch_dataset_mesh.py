@@ -137,8 +137,3 @@ def test_dataset_mesh_shadowed_gt_darker(scene):
     assert 0 <= cov["splat_singletons"] <= cov["splat_cells"] and cov["splat_cells"] > 0
     assert cov["splat_cells"] * cov["splat_samples_per_cell"] == pytest.approx(1 << 17)
 
-
-def test_dataset_mesh_second_layer_is_not_ported(scene):
-    with pytest.raises(NotImplementedError, match="ROADMAP D.5"):
-        DatasetMesh(scene["mesh_t"], scene["light_t"], scene["params_t"], scene["mat_t"],
-                    RenderFlags(**FLAGS), layers=2, **VIEWS)

@@ -124,8 +124,7 @@ def test_eval_takes_the_geometry_from_the_state(files, runs, config, capsys):
     assert f"step 4, {runs[0]['final_faces']} faces" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("setting, item", [({"use_depth": True}, "ROADMAP D.1"), ({"layers": 2}, "ROADMAP D.5"),
-                                           ({"use_sdf_mlp": False}, "ROADMAP D.1")])
+@pytest.mark.parametrize("setting, item", [({"use_sdf_mlp": False}, "ROADMAP D.1")])
 def test_flexi_unported_settings_still_exit(files, tmp_path, setting, item):
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({**TINY, "use_flexicubes": True, **setting}))

@@ -189,15 +189,57 @@ def test_env_shade_matches_jax(light_bf16):
         assert_close(leaf.grad, gj, rtol=1e-4, atol=1e-5 * max(np.abs(gj).max(), 1e-6), what=name)
 
 
-def test_vndf_nonfinite_gradients_match_jax():
+class _Maximum0(torch.autograd.Function):
+    """max(x, 0) with ``jnp.maximum(0, x)``'s derivative (the cotangent
+    times 1, ½ at a tie, 0 below): the port's rule before ``sqrt_nonneg``,
+    under which sqrt's infinite derivative at 0 became ∞ or NaN."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, min=0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.where(x > 0, 1.0, torch.where(x == 0, 0.5, 0.0))
+
+
+def test_sqrt_nonneg_matches_jax_where_finite():
+    """``sqrt_nonneg``'s forward equals the port's former
+    ``sqrt(clamp(x, 0))`` bit for bit and ``jnp.sqrt(jnp.maximum(0, x))``
+    to the ulp by which XLA's and PyTorch's CPU square roots differ; its
+    derivative equals JAX's where x > 0 (to that ulp) and is 0 where JAX's
+    is infinite (x = 0) or NaN (x < 0).  (No subnormal x: XLA's CPU flushes
+    them to 0.)"""
+    from gshell_tpu_torch.ops.math import sqrt_nonneg
+
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.uniform(-1e-6, 1e-6, 500), rng.uniform(-1, 1, 500), [0.0, -0.0]])
+    x = x.astype(np.float32)
+    y_j, g_j = jax.vmap(jax.value_and_grad(lambda v: jnp.sqrt(jnp.maximum(0.0, v))))(jnp.asarray(x))
+    xt = t(x, True)
+    y_t = sqrt_nonneg(xt)
+    y_t.sum().backward()
+    np.testing.assert_array_equal(n(y_t), n(torch.sqrt(torch.clamp(t(x), min=0.0))))
+    assert_close(y_t, y_j, rtol=2.4e-7, what="forward")
+    g_j, g_t = np.asarray(g_j), n(xt.grad)
+    assert np.isfinite(g_t).all()
+    pos = x > 0
+    assert_close(g_t[pos], g_j[pos], rtol=2.4e-7, what="derivative where x > 0")
+    assert (g_t[~pos] == 0).all() and not np.isfinite(g_j[~pos]).any()
+
+
+def test_vndf_nonfinite_gradients_match_jax(monkeypatch):
     """GGX-VNDF samples near the rim of the disk (r → 1), where the
-    argument of ``sqrt(max(0, 1 − p1² − p2²))`` rounds to 0 or below: the
-    sqrt's infinite derivative gives non-finite gradients (which the train
-    step zeroes and counts) on the same samples on both sides.  JAX's
-    ``maximum`` multiplies the cotangent by its 0/½/1 selector, so they
-    include the samples where the argument is below 0.  The two sides
-    round the argument differently by an ulp, so the sets agree to a few
-    percent (measured: 2406 vs 2411 of 200 000, 2226 shared)."""
+    argument of ``sqrt(max(0, 1 − p1² − p2²))`` rounds to 0 or below: JAX's
+    derivative there is infinite or NaN, and with JAX's rule the port's
+    non-finite gradients fall on the same samples (the two sides round the
+    argument differently by an ulp, so the sets agree to a few percent;
+    measured: 2406 vs 2411 of 200 000, 2226 shared).  The port's
+    ``sqrt_nonneg`` keeps the forward bit for bit, gives the same gradient
+    wherever both sides' are finite under JAX's rule, and is finite on every
+    sample (ROADMAP C: a deliberate difference)."""
     rng = np.random.default_rng(15)
     p = 20000
     wo = rng.normal(size=(p, 3))
@@ -214,14 +256,25 @@ def test_vndf_nonfinite_gradients_match_jax():
         return jnp.sum(h * gh) + jnp.sum(pdf * gp)
 
     _, gw_j = jax.grad(fj, argnums=(0, 1))(jnp.asarray(alpha), jnp.asarray(wo))
-    a_t, w_t = t(alpha, True), t(wo, True)
-    h, pdf = tsh._sample_ggx_vndf(a_t, w_t, t(ux), t(uy))
-    (torch.sum(h * t(gh)) + torch.sum(pdf * t(gp))).backward()
+
+    def port():
+        a_t, w_t = t(alpha, True), t(wo, True)
+        h, pdf = tsh._sample_ggx_vndf(a_t, w_t, t(ux), t(uy))
+        (torch.sum(h * t(gh)) + torch.sum(pdf * t(gp))).backward()
+        return n(h), n(pdf), n(w_t.grad)
+
+    h_t, pdf_t, g_t = port()
+    monkeypatch.setattr(tsh, "sqrt_nonneg", lambda x: torch.sqrt(_Maximum0.apply(x)))
+    h_r, pdf_r, g_r = port()
+    np.testing.assert_array_equal(h_t, h_r)
+    np.testing.assert_array_equal(pdf_t, pdf_r)
     bad_j = ~np.isfinite(np.asarray(gw_j)).all(-1)
-    bad_t = ~np.isfinite(n(w_t.grad)).all(-1)
-    assert bad_j.sum() > 0 and bad_t.sum() > 0
-    both = (bad_j & bad_t).sum()
-    assert both >= 0.9 * max(bad_j.sum(), bad_t.sum()), (bad_j.sum(), bad_t.sum(), both)
-    ok = ~bad_j & ~bad_t
+    bad_r = ~np.isfinite(g_r).all(-1)
+    assert bad_j.sum() > 0 and bad_r.sum() > 0
+    both = (bad_j & bad_r).sum()
+    assert both >= 0.9 * max(bad_j.sum(), bad_r.sum()), (bad_j.sum(), bad_r.sum(), both)
+    assert np.isfinite(g_t).all(), int((~np.isfinite(g_t)).sum())
+    ok = ~bad_j & ~bad_r
+    np.testing.assert_array_equal(g_t[ok], g_r[ok])
     gj = np.asarray(gw_j)[ok]
-    assert_close(n(w_t.grad)[ok], gj, rtol=1e-3, atol=1e-3 * np.abs(gj).max(), what="d/dwo where finite")
+    assert_close(g_t[ok], gj, rtol=1e-3, atol=1e-3 * np.abs(gj).max(), what="d/dwo where finite")

@@ -88,10 +88,21 @@ def shade_source(key):
     return lambda kind, name, shape, lo, hi: _draw(kind, shade_key_for(key, name), shape, lo, hi)
 
 
+def second_key_for(key, rest: str):
+    """JAX key of a ``render_second_layer`` draw named ``rest`` (tangent,
+    shade/...) under the view key, which JAX splits into ``k_tng, k_shade``."""
+    k_tng, k_shade = jax.random.split(key)
+    top, _, tail = rest.partition("/")
+    return k_tng if top == "tangent" else shade_key_for(k_shade, tail)
+
+
 def view_key_for(key, rest: str):
-    """JAX key of a ``render_mesh`` draw named ``rest`` under view key."""
+    """JAX key of a ``render_mesh`` draw named ``rest`` under view key; the
+    view's second layer draws under ``second/`` from the same key."""
     k_tng, k_jit, k_shade, k_nrmjit, k_tex, k_texj = jax.random.split(key, 6)
     top, _, tail = rest.partition("/")
+    if top == "second":
+        return second_key_for(key, tail)
     if top == "shade":
         return shade_key_for(k_shade, tail)
     return {

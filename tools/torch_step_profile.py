@@ -28,8 +28,20 @@ step 1000, a disk target), and prints, each as a JSON line:
      step), then of the backward and of the three Adam steps; the second of
      two repetitions.
 
-Usage: ``python3 tools/torch_step_profile.py [--flexicubes]`` from the
-repository root.
+With ``--config FILE`` it builds instead the train step of that config at
+its full width (``train.setup.reconstructor_from_flags``: its grid,
+resolution, n_samples, batch; the config's SDF pretrain; state step 1000)
+on two views of the port's synthetic skirt rendered as ground truth, and
+prints ``first_step`` as above, then for each mode of ``--modes``
+(``view_batch_mode``, default ``map_remat,map``), each from a copy of the
+same state with draws of the same seed, a ``mode`` line: for one tick the
+bytes its forward keeps for the backward and the forward's and the
+backward's peaks above what was allocated before it; then host-clock
+seconds of three steps after one warm-up step and the peak device memory
+of those four steps (``"fits": false`` where the card ran out of memory).
+
+Usage: ``python3 tools/torch_step_profile.py [--flexicubes | --config FILE
+[--modes map_remat,map]]`` from the repository root.
 """
 import argparse
 import collections
@@ -38,6 +50,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -117,10 +130,100 @@ def grads_by_group(state):
     return out
 
 
+def config_point(path: str, dev):
+    """The train step of the config ``path`` at its full width on ``dev``:
+    its ``Reconstructor``, a state after the config's SDF pretrain at step
+    1000, a draw source, and two ground-truth views of the synthetic skirt
+    (white background) as the batch."""
+    from gshell_tpu_torch.data.datasets import DatasetMesh
+    from gshell_tpu_torch.render.mesh import Mesh, unit_size
+    from gshell_tpu_torch.train.setup import gt_light_material, reconstructor_from_flags
+    from gshell_tpu_torch.utils.config import load_flags
+    from gshell_tpu_torch.utils.rng import TorchDraws
+    from gshell_tpu_torch.utils.synthetic_gt import skirt
+
+    flags = load_flags(path)
+    rec = reconstructor_from_flags(flags, dev)
+    draws = TorchDraws(torch.Generator(dev).manual_seed(chip_smoke.SEED))
+    t0 = time.time()
+    state = rec.init_state(draws.child("init"), pretrain_steps=flags.sdf_mlp_pretrain_steps)
+    torch.cuda.synchronize()
+    print(f"init_state ({flags.sdf_mlp_pretrain_steps} pretrain steps): {time.time() - t0:.2f} s", flush=True)
+    state.step = 1000
+    v, f = skirt()
+    mesh = unit_size(Mesh(v_pos=torch.as_tensor(v, device=dev), t_pos_idx=torch.as_tensor(f, device=dev).long()))
+    light, mat = gt_light_material(rec.mat_cfg, dev)
+    ds = DatasetMesh(mesh, light, mat, rec.mat_cfg, rec.flags, n_views=rec.tcfg.batch, shadows=flags.gt_shadows)
+    target = ds.batch(list(range(rec.tcfg.batch)), background="white", rng=np.random.default_rng(0))
+    return rec, state, draws, target
+
+
+def tick_memory(rec, state, draws, target) -> dict:
+    """One tick on ``state``: the bytes its forward keeps for the backward,
+    and the forward's and the backward's peaks above what was allocated
+    before it."""
+    for opt in state.optimizers:
+        opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    img, depth, reg, _ = rec.geo.tick(
+        draws, state.params_geo, state.params_mat, rec.mat_cfg, update_pdf(state.light_base), target, state.step,
+        rec.flags, rec.image_loss_fn, use_shadows=rec.tcfg.use_shadows, shadow_scale=1.0, denoiser_sigma=2.0)
+    torch.cuda.synchronize()
+    out = {"tick_forward_kept_bytes": torch.cuda.memory_allocated() - base,
+           "tick_forward_peak_bytes": torch.cuda.max_memory_allocated() - base}
+    torch.cuda.reset_peak_memory_stats()
+    (img + depth + reg).backward()
+    torch.cuda.synchronize()
+    out["tick_backward_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    for opt in state.optimizers:
+        opt.zero_grad(set_to_none=True)
+    return out
+
+
+def modes_steps(rec, state, draws, target, modes, card):
+    """For each ``view_batch_mode`` in ``modes``, from a copy of the same
+    state and a draw source of the same seed: :func:`tick_memory`, then one
+    warm-up step and three timed steps and their peak memory."""
+    import copy
+    import dataclasses
+
+    from gshell_tpu_torch.utils.rng import TorchDraws
+
+    pristine = copy.deepcopy(state)
+    for mode in modes:
+        rec.geo.cfg = dataclasses.replace(rec.geo.cfg, view_batch_mode=mode)
+        st = copy.deepcopy(pristine)
+        draws = TorchDraws(torch.Generator(rec.device).manual_seed(chip_smoke.SEED + 1))
+        torch.cuda.empty_cache()
+        secs = []
+        try:
+            mem = tick_memory(rec, st, draws.child("tick"), target)
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = rec.train_step(st, draws.child(f"step{i}"), target)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        except torch.cuda.OutOfMemoryError as err:
+            emit("mode", {"view_batch_mode": mode, "fits": False, "error": str(err).splitlines()[0],
+                          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "card": card})
+            del st
+            continue
+        emit("mode", {"view_batch_mode": mode, "fits": True, **mem, "warmup_s": secs[0], "seconds": secs[1:],
+                      "median": sorted(secs[1:])[1], "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                      "nonfinite_grads": int(m["nonfinite_grads"]), "n_faces": int(m["n_faces"]), "card": card})
+        del st
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--flexicubes", action="store_true",
                    help="the FlexiCubes step of configs/deepfashion_mc_80.json, not the working point")
+    p.add_argument("--config", default=None, help="the train step of this config file at full width")
+    p.add_argument("--modes", default="map_remat,map", help="view_batch_mode values to time (with --config)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device found", file=sys.stderr)
@@ -128,11 +231,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0")
     card = chip_smoke.card_name()
     emit("card", card)
-    rec, state, draws, target = (chip_smoke.flexi_point if args.flexicubes else chip_smoke.working_point)(dev)
+    if args.config:
+        rec, state, draws, target = config_point(args.config, dev)
+    else:
+        rec, state, draws, target = (chip_smoke.flexi_point if args.flexicubes else chip_smoke.working_point)(dev)
     geo, flags = rec.geo, rec.flags
-    emit("workload", {"flexicubes": args.flexicubes, "resolution": list(flags.resolution),
-                      "n_samples": flags.n_samples, "batch": int(target["mvp"].shape[0]),
-                      "grid_res": geo.cfg.grid_res})
+    emit("workload", {"config": args.config, "geometry": type(geo).__name__,
+                      "resolution": list(flags.resolution), "n_samples": flags.n_samples,
+                      "batch": int(target["mvp"].shape[0]), "grid_res": geo.cfg.grid_res,
+                      "view_batch_mode": geo.cfg.view_batch_mode})
 
     # ---- 1. the first step's non-finite gradients ------------------------
     # chip_smoke.py's first train step: the same draws follow its probe render
@@ -157,7 +264,11 @@ def main(argv=None) -> int:
     emit("first_step", {"nonfinite_grads": int(m["nonfinite_grads"]),
                         "nonfinite_per_group": {k: per_group[k] for k in grads_by_group(state)},
                         "nonfinite_per_stage": {k: v for k, v in sorted(counts.items()) if v},
+                        "sdf_net_grad_norm": float(m["sdf_net_grad_norm"]),
                         "stages_watched": len(counts), "card": card})
+    if args.config:
+        modes_steps(rec, state, draws, target, args.modes.split(","), card)
+        return 0
 
     # ---- 2. steady steps ---------------------------------------------------
     for i in range(3):
@@ -209,7 +320,7 @@ def main(argv=None) -> int:
 
     names = {"extract": (geo, "extract"), "fields (SDF MLP)": (geo, "fields"),
              "shadow occluder splat": (geo, "splat_occupancy"),
-             "shadow field sweep": (G, "make_shadow_field"), "raster A+B+stitch": (R, "rasterize_tiled"),
+             "shadow field sweep": (G, "make_shadow_field"), "raster A+B+stitch": (R, "rasterize_layers"),
              "interpolate": (R, "interpolate"), "material": (R, "sample_mlp_texture"),
              "MC shade forward": (R, "env_shade"), "denoiser forward": (R, "bilateral_denoiser"),
              "antialias": (R, "antialias"), "render_mesh": (G, "render_mesh")}
