@@ -69,6 +69,17 @@ Runs, in order:
      a depth tie within rounding; the one-layer and two-layer binned passes,
      the second layer's own pass and the scan timed; a
      ``{"second_layer": ...}`` line.
+ 11. textured meshes: the skirt config at full width with ``spp: 2`` and
+     ``denoiser_demodulate: false`` (16 ground-truth views, 2 iterations:
+     stage B at 1024², the 3-channel stencil forward and transposed at
+     1024², held as in phase 7); the state's material given a kd that
+     varies across the skirt, then a resumed call with ``--bake-texture
+     1024`` (unwrap on the host, ``render_uv`` on the card) writes the four
+     asset files; the asset is loaded back (OBJ, MTL, PNGs,
+     ``merge_materials``) and rendered on a 512² view under ``kd`` and
+     ``pbr`` (both kernels, held) and ``normal`` and ``ks``: the baked kd
+     scores at least 20 dB PSNR against the neural kd, the atlas flipped in
+     v at least 3 dB less; a ``{"textured": ...}`` line.
 
 Prints a JSON line of per-kernel results (with ``bound_ms``, the least time
 the card could take for the same work, see ``_bound_ms``), the nvidia-smi
@@ -1309,6 +1320,213 @@ def second_layer_path(smi: str, dev) -> dict:
     return rec_out
 
 
+# Phase 11: the textured path.  Phase 7's skirt config at full width (512²,
+# tet grid 96, n_samples 8, batch 2, shadows) plus supersampling and
+# denoising after modulation; the bake at 1024².  Only depth is cut:
+TEXTURED_OUT = os.path.join(ROOT, "out", "chip_smoke", "textured")  # gitignored
+TEXTURED_GT_VIEWS, BAKE_RES = 16, 1024
+TEXTURED_SETTINGS = {"spp": 2, "denoiser_demodulate": False}
+TEXTURED_CUTS = ["2 iterations in place of 3000, then a resumed call that trains none and bakes",
+                 f"{TEXTURED_GT_VIEWS} ground-truth views in place of 64 (train_gshell.GT_VIEWS)"]
+# the baked material: the hash grid's coarsest level drawn in ±30 from the
+# seed (utils.synthetic.vary_material), so that kd varies across the skirt
+VARY = {"seed": SEED, "levels": 1, "scale": 30.0}
+PSNR_GATE, CONTROL_MARGIN = 20.0, 3.0  # dB
+
+
+def kd_psnr(a, b) -> float:
+    """PSNR of two renders' kd on the pixels both cover fully."""
+    import torch
+
+    from gshell_tpu_torch.ops.math import mse_to_psnr
+
+    both = (a["mask"][..., 0] == 1) & (b["mask"][..., 0] == 1)
+    if int(both.sum()) == 0:
+        raise RuntimeError("the baked and the neural renders share no covered pixel")
+    return float(mse_to_psnr(torch.mean((a["kd"][..., :3] - b["kd"][..., :3])[both] ** 2)))
+
+
+def textured_round_trip(run: str, cfg_path: str, dev, mvp, campos) -> dict:
+    """The baked asset in ``run`` loaded back (``train_gshell.load_baked``:
+    OBJ, MTL, PNGs, ``merge_materials``) and rendered on one view through
+    the Texture2D branch under ``kd``, ``pbr`` (denoiser on), ``normal`` and
+    ``ks``, with the run's flags (the config's spp and denoising); the
+    neural material of the run's state on its own mesh and the same view
+    under ``kd``; the atlas flipped in v under ``kd``.  Both launch counts
+    are set to 0 just before the ``kd`` and ``pbr`` renders and read just
+    after.  → the PSNRs of the baked and the flipped kd against the neural
+    kd, each BSDF's buffers' finiteness and whether it emitted light
+    buffers, and those two renders' launches."""
+    import torch
+
+    from gshell_tpu_torch import train_gshell
+    from gshell_tpu_torch.ops import denoiser as dn
+    from gshell_tpu_torch.ops import rasterize as rz
+    from gshell_tpu_torch.render.light import update_pdf
+    from gshell_tpu_torch.render.render import render_mesh
+    from gshell_tpu_torch.render.texture import create_trainable
+    from gshell_tpu_torch.train.reconstruct import load_state
+    from gshell_tpu_torch.train.setup import kernel_launches, reconstructor_from_flags
+    from gshell_tpu_torch.utils.config import load_flags
+    from gshell_tpu_torch.utils.rng import TorchDraws
+
+    rec = reconstructor_from_flags(load_flags(cfg_path), dev)
+    state, _ = load_state(rec, os.path.join(run, "state.pt"))
+    light = update_pdf(state.light_base.detach())
+    mesh, uvs, tfaces, material = train_gshell.load_baked(run, dev)
+    baked_geom = (mesh.v_pos, mesh.t_pos_idx, mesh.v_nrm)
+    uv = {"v_tex": uvs, "t_tex_idx": tfaces}
+
+    def render(geom, mat, bsdf, **uv_kw):
+        return render_mesh(TorchDraws(torch.Generator(dev).manual_seed(SEED)), *geom, None, mat, rec.mat_cfg, mvp,
+                           campos, light, rec.flags._replace(bsdf=bsdf, shade_budget=None), **uv_kw)
+
+    out = {"faces": int(mesh.t_pos_idx.shape[0]), "atlas": tuple(material.kd.base.shape)}
+    with torch.no_grad():
+        rz.stage_b_calls, dn.bilateral_launches = 0, 0
+        bufs = {bsdf: render(baked_geom, material, bsdf, **uv) for bsdf in ("kd", "pbr")}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["launches"] = kernel_launches()
+        bufs.update({bsdf: render(baked_geom, material, bsdf, **uv) for bsdf in ("normal", "ks")})
+        neural = rec.geo.get_mesh(state.params_geo)
+        neural_kd = render((neural.verts, neural.faces, neural.v_nrm), state.params_mat, "kd")
+        flipped = material._replace(kd=create_trainable(material.kd.base.flip(0)))
+        out["psnr"] = kd_psnr(bufs["kd"], neural_kd)
+        out["psnr_v_flipped"] = kd_psnr(render(baked_geom, flipped, "kd", **uv), neural_kd)
+    out["finite"] = {b: all(bool(torch.isfinite(v).all()) for v in buf.values()
+                            if isinstance(v, torch.Tensor) and v.is_floating_point()) for b, buf in bufs.items()}
+    out["light_buffers"] = {b: "diffuse_light" in buf for b, buf in bufs.items()}
+    out["covered_px"] = int((bufs["kd"]["mask"][..., 0] == 1).sum())
+    return out
+
+
+def textured_path(smi: str, dev) -> dict:
+    """Phase 11: the skirt → ``train_gshell.main`` with the skirt config plus
+    ``TEXTURED_SETTINGS`` (2 iterations), its state's material given a
+    varied kd (``VARY``), then a resumed call with ``--bake-texture
+    BAKE_RES`` that trains nothing and bakes; each entry point counted and
+    its kernels' first and last launches held against the plain versions
+    (stage B at 1024², the 3-channel stencil forward and transposed at
+    1024²); then :func:`textured_round_trip` on the front view, its two
+    renders counted and held as well.  Returns the phase's record; raises
+    on any failed check."""
+    import shutil
+
+    import torch
+
+    from gshell_tpu_torch import train_gshell
+    from gshell_tpu_torch.utils.synthetic import vary_material
+    from gshell_tpu_torch.utils.synthetic_gt import skirt, write_obj
+
+    t_phase = time.time()
+    shutil.rmtree(TEXTURED_OUT, ignore_errors=True)
+    os.makedirs(TEXTURED_OUT)
+    obj = os.path.join(TEXTURED_OUT, "skirt.obj")
+    write_obj(obj, *skirt())
+    with open(CLI_CONFIG) as f:
+        cfg = json.load(f)
+    cfg.update(TEXTURED_SETTINGS, save_interval=0)
+    cfg_path = os.path.join(TEXTURED_OUT, "skirt_textured.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    run = os.path.join(TEXTURED_OUT, "run")
+    state_path = os.path.join(run, "state.pt")
+    common = ["--config", cfg_path, "--ref-mesh", obj, "--out-dir", run, "--log-interval", "1",
+              "--device", str(dev)]
+    print("textured cuts: " + "; ".join(TEXTURED_CUTS) + f"; settings {json.dumps(TEXTURED_SETTINGS)}, "
+          f"bake {BAKE_RES}², material {json.dumps(VARY)}")
+
+    view = flexi_target(dev, RES)
+    gt_views, train_gshell.GT_VIEWS = train_gshell.GT_VIEWS, TEXTURED_GT_VIEWS
+    try:
+        with KernelTaps() as taps:
+            ep = EntryPoints(taps)
+            first = ep.train(common + ["--iter", "2"], "textured train (ground truth, then train step 1)")
+            record = torch.load(state_path, weights_only=True)
+            record["params_mat"] = vary_material(record["params_mat"], **VARY)
+            torch.save(record, state_path)
+            baked = ep.train(common + ["--iter", "2", "--resume", "--bake-texture", str(BAKE_RES)],
+                             "textured bake (ground truth)")
+            taps.clear()
+            trip = textured_round_trip(run, cfg_path, dev, view["mvp"][0], view["campos"][0])
+            ep.hold("textured round trip (the pbr render of the baked asset)",
+                    {"taps": taps.taps, "launches": {}})
+    finally:
+        train_gshell.GT_VIEWS = gt_views
+    if set(ep.held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+        raise RuntimeError(f"phase 11 held only {sorted(ep.held)} against the plain versions")
+
+    log, bake = first["log"], baked["bake"]
+    for e in log:
+        print(f"textured step {e['it']}: total {e['total']:.6f} img {e['img_loss']:.6f} reg {e['reg_loss']:.6f} "
+              f"n_faces {int(e['n_faces'])} raster_dropped {int(e['raster_dropped'])} px_dropped "
+              f"{int(e['px_dropped'])} nonfinite_grads {int(e['nonfinite_grads'])} | {e['s']:.3f} s/step, "
+              f"peak so far {e['peak_gib']:.2f} GiB  [{smi}]")
+    rec_out = {
+        "cuts": TEXTURED_CUTS, "settings": TEXTURED_SETTINGS, "bake_res": BAKE_RES, "material": VARY,
+        "gt_views": first["gt_views"], "gt_s_per_view": first["gt_seconds"] / first["gt_views"],
+        "steps_s": [e["s"] for e in log], "peak_gib": first["peak"],
+        "nonfinite_grads": [int(e["nonfinite_grads"]) for e in log], "img_loss": [e["img_loss"] for e in log],
+        "bake": bake, "bake_run_seconds": baked["seconds"], "round_trip": {k: v for k, v in trip.items()
+                                                                         if k != "launches"},
+        "launches": {"textured_gt_train": first["launches"]["dataset"], "textured_train": first["launches"]["train"],
+                     "textured_gt_bake": baked["launches"]["dataset"], "textured_render": trip["launches"]},
+        "held_max_abs_err": ep.held,
+    }
+    print(f"textured ground truth: {first['gt_views']} views at {RES}² spp 2 ({2 * RES}² rasters) in "
+          f"{first['gt_seconds']:.2f} s ({rec_out['gt_s_per_view']:.4f} s/view)  [{smi}]")
+    print(f"textured train at grid 96, {RES}² spp 2, modulated denoise: steps "
+          f"{[round(x, 3) for x in rec_out['steps_s']]} s; peak memory {first['peak']:.2f} GiB (ground truth and "
+          f"SDF pretrain included); nonfinite_grads {rec_out['nonfinite_grads']}  [{smi}]")
+    print(f"textured bake at {BAKE_RES}²: {bake.get('faces')} faces, {bake.get('charts')} charts, "
+          f"{bake.get('uv_verts')} UV vertices, {100 * bake.get('covered', 0):.2f} % of the atlas covered, finite "
+          f"{bake.get('finite')}; unwrap {bake.get('unwrap_seconds', 0):.2f} s (host), render_uv "
+          f"{bake.get('render_uv_seconds', 0):.2f} s; the resumed call {baked['seconds']:.2f} s  [{smi}]")
+    print(f"textured round trip at {RES}² ({trip['covered_px']} px covered by both): baked kd PSNR "
+          f"{trip['psnr']:.3f} dB (gate {PSNR_GATE}), v-flipped {trip['psnr_v_flipped']:.3f} dB (at least "
+          f"{CONTROL_MARGIN} lower); finite {trip['finite']}; light buffers {trip['light_buffers']}  [{smi}]")
+    print(f"textured launches by path: {json.dumps(rec_out['launches'])}")
+
+    bad = [f"step {e['it']} {k}" for e in log for k in ("total", "img_loss", "reg_loss") if not _finite(e[k])]
+    bad += [f"step {e['it']}: n_faces {e['n_faces']}, raster_dropped {e['raster_dropped']}, px_dropped "
+            f"{e['px_dropped']}, nonfinite_grads {e['nonfinite_grads']}" for e in log
+            if e["n_faces"] <= 0 or e["raster_dropped"] or e["px_dropped"] or e["nonfinite_grads"]]
+    missing = [n for n in ("texture_kd.png", "texture_ks.png", "mesh_textured.obj", "baked.mtl")
+               if not os.path.exists(os.path.join(run, n))]
+    if missing or not bake.get("finite") or not bake.get("covered", 0) > 0:
+        bad.append(f"bake: missing {missing}, finite {bake.get('finite')}, covered {bake.get('covered')}")
+    if baked["log"] or baked["start_it"] != 2:
+        bad.append(f"the bake call trained ({baked['start_it']}, {[e['it'] for e in baked['log']]})")
+    if not trip["psnr"] >= PSNR_GATE or not trip["psnr_v_flipped"] <= trip["psnr"] - CONTROL_MARGIN:
+        bad.append(f"round trip: PSNR {trip['psnr']:.3f} dB (gate {PSNR_GATE}), v-flipped "
+                   f"{trip['psnr_v_flipped']:.3f} dB (must be {CONTROL_MARGIN} dB lower)")
+    bad += [f"{b} buffers not finite" for b, ok in trip["finite"].items() if not ok]
+    bad += [f"bsdf {b} emitted light buffers" for b in ("normal", "kd", "ks") if trip["light_buffers"].get(b)]
+    if not trip["light_buffers"]["pbr"]:
+        bad.append("bsdf pbr emitted no light buffers")
+    bad += [f"{path}: {k} not launched" for path, c in rec_out["launches"].items() for k, v in c.items() if v <= 0]
+    rec_out["seconds"] = time.time() - t_phase
+    print(f"textured phase: {rec_out['seconds']:.1f} s")
+    if bad:
+        raise RuntimeError("phase 11 (textured path) failed: " + "; ".join(bad))
+    return rec_out
+
+
+def absorb_path(results: list, by_path: dict, launches: dict, held: dict) -> None:
+    """Add a phase's launches per path to ``by_path`` and its held errors to
+    each kernel's line (``max_abs_err``, ``launches_by_path``,
+    ``launches``); raises if a kernel was not launched on every path."""
+    by_path.update(launches)
+    for r in results:
+        name = r["name"]
+        r["max_abs_err"] = max(r["max_abs_err"], held[name])
+        r["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        if min(r["launches_by_path"].values()) == 0:
+            raise RuntimeError(f"{name} was not launched on every path: {r['launches_by_path']}")
+
+
 def card_name() -> str:
     """``nvidia-smi``'s name and power limit of the first card."""
     return subprocess.run(
@@ -1440,14 +1658,7 @@ def main() -> int:
     # ---- phase 7: the command-line path at full width --------------------------
     del rec, state, draws, target, geo, mesh, faces_c, fvalid_c, v_nrm, bufs, bins, crowd
     torch.cuda.empty_cache()
-    cli_launches, cli_err = cli_path(smi)
-    by_path.update(cli_launches)
-    for r in results:
-        r["max_abs_err"] = max(r["max_abs_err"], cli_err[r["name"]])
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
-        r["launches"] = sum(r["launches_by_path"].values())
-        if min(r["launches_by_path"].values()) == 0:
-            raise RuntimeError(f"{r['name']} was not launched on every path: {r['launches_by_path']}")
+    absorb_path(results, by_path, *cli_path(smi))
 
     # ---- phase 8: the diffusion path at full width (launches neither kernel) ----
     torch.cuda.empty_cache()
@@ -1456,35 +1667,26 @@ def main() -> int:
     # ---- phase 9: FlexiCubes at the full width of deepfashion_mc_80 -------------
     torch.cuda.empty_cache()
     flexi = flexi_path(smi, dev)
-    by_path.update(flexi["launches"])
+    absorb_path(results, by_path, flexi["launches"], flexi.pop("held_max_abs_err"))
     for r in results:
-        name = r["name"]
-        r["max_abs_err"] = max(r["max_abs_err"], flexi["held_max_abs_err"][name])
-        r["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
-        r["launches"] = sum(r["launches_by_path"].values())
-        k = flexi["kernels_1024"][name]
+        k = flexi["kernels_1024"][r["name"]]
         r.update({"ms_1024": k["ms"], "eager_ms_1024": k["eager_ms"], "plain_ms_1024": k["plain_ms"],
                   "bound_ms_1024": k["bound_ms"], "bound_by_1024": k["bound_by"]})
-        if min(r["launches_by_path"].values()) == 0:
-            raise RuntimeError(f"{name} was not launched on every path: {r['launches_by_path']}")
-    del flexi["held_max_abs_err"]
 
     # ---- phase 10: the second surface layer at the skirt config's full width --
     torch.cuda.empty_cache()
     second = second_layer_path(smi, dev)
-    by_path.update(second["launches"])
-    for r in results:
-        name = r["name"]
-        r["max_abs_err"] = max(r["max_abs_err"], second["held_max_abs_err"][name])
-        r["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
-        r["launches"] = sum(r["launches_by_path"].values())
-        if min(r["launches_by_path"].values()) == 0:
-            raise RuntimeError(f"{name} was not launched on every path: {r['launches_by_path']}")
-    del second["held_max_abs_err"]
+    absorb_path(results, by_path, second["launches"], second.pop("held_max_abs_err"))
+
+    # ---- phase 11: textured meshes — spp 2, modulated denoise, the UV bake ---
+    torch.cuda.empty_cache()
+    textured = textured_path(smi, dev)
+    absorb_path(results, by_path, textured["launches"], textured.pop("held_max_abs_err"))
 
     print(json.dumps({"diffusion": diffusion}))
     print(json.dumps({"flexicubes": flexi}))
     print(json.dumps({"second_layer": second}))
+    print(json.dumps({"textured": textured}))
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,15 @@ The JAX state is taken as numpy arrays (or anything ``np.asarray`` accepts):
 the ``params_geo`` dict, an ``MLPTexture3DParams``-like material (``tables``
 holding a ``HashGridParams``-like ``tables`` array, and ``mlp``), and
 ``light_base``.  MLP weights are (in, out) on both sides — the port applies
-them as ``x @ w`` — so they are copied without a transpose."""
+them as ``x @ w`` — so they are copied without a transpose.  Texture2D
+materials carry over mip level by mip level."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .render.material import TextureMaterial
+from .render.texture import Texture2D
 
 
 def _t(a, device):
@@ -65,6 +69,20 @@ def params_mat_from_jax(params_mat, device) -> dict:
     tables = getattr(params_mat, "tables", None)
     tables = getattr(tables, "tables", tables)
     return {"tables": _t(tables, device), "mlp": [_t(w, device) for w in params_mat.mlp]}
+
+
+def texture_from_jax(tex, device):
+    """A JAX ``Texture2D`` (its ``mips``, numpy or JAX arrays) as the port's,
+    level for level."""
+    return Texture2D(mips=tuple(_t(m, device) for m in tex.mips))
+
+
+def texture_material_from_jax(mat: dict, device):
+    """A JAX Texture2D material dict (``kd``, ``ks``, optional ``normal``)
+    as the port's ``TextureMaterial``."""
+    normal = texture_from_jax(mat["normal"], device) if "normal" in mat else None
+    return TextureMaterial(kd=texture_from_jax(mat["kd"], device), ks=texture_from_jax(mat["ks"], device),
+                           normal=normal)
 
 
 def state_from_jax(reconstructor, params_geo, params_mat, light_base, step: int = 0):

@@ -79,7 +79,9 @@ def main(argv=None) -> dict:
     record = torch.load(args.state, map_location="cpu", weights_only=True, mmap=True)
     flags.use_flexicubes = "cube_weights" in record["params_geo"]
     rec = reconstructor_from_flags(flags, device, n_samples=args.spp)
-    rflags = rec.flags._replace(shade_budget=None)  # every pixel shaded
+    # every pixel shaded; spp 1 and denoising before modulation whatever the
+    # config says, as JAX's eval builds its flags
+    rflags = rec.flags._replace(shade_budget=None, spp=1, denoiser_demodulate=True)
     state, _ = load_state(rec, args.state)
     light = update_pdf(state.light_base.detach())
     params_mat = {"tables": state.params_mat["tables"].detach(),

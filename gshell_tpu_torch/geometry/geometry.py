@@ -350,10 +350,10 @@ def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, m
         d = torch.abs(torch.clamp(mesh.msdf_boundary, max=eps) - eps)
         msdf_reg = msdf_reg + cfg.msdf_reg_close_scale * regscale * torch.sum(huber(d) * vis_boundary)
 
-    shading_reg = reg.shading_loss(
-        buffers["diffuse_light"], buffers["specular_light"], color_ref,
-        cfg.lambda_diffuse, cfg.lambda_specular,
-    )
+    shading_reg = torch.zeros((), device=dev)
+    if "diffuse_light" in buffers:  # the normal / kd / ks BSDFs emit no light buffers
+        shading_reg = reg.shading_loss(buffers["diffuse_light"], buffers["specular_light"], color_ref,
+                                       cfg.lambda_diffuse, cfg.lambda_specular)
     shading_reg = shading_reg + reg.material_smoothness_grad(
         buffers["kd_grad"], buffers["ks_grad"], buffers["normal_grad"],
         lambda_kd=cfg.lambda_kd, lambda_ks=cfg.lambda_ks, lambda_nrm=cfg.lambda_nrm,

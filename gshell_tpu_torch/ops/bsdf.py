@@ -52,6 +52,16 @@ def fresnel_schlick(f0, f90, cos_theta):
     return f0 + (f90 - f0) * (1.0 - ct) ** 5.0
 
 
+def frostbite_diffuse(nrm, wi, wo, linear_roughness):
+    wi_dot_n, wo_dot_n = dot(wi, nrm), dot(wo, nrm)
+    wi_dot_h = dot(wi, safe_normalize(wo + wi))
+    energy_bias = 0.5 * linear_roughness
+    energy_factor = 1.0 - (0.51 / 1.51) * linear_roughness
+    f90 = energy_bias + 2.0 * wi_dot_h * wi_dot_h * linear_roughness
+    res = fresnel_schlick(1.0, f90, wi_dot_n) * fresnel_schlick(1.0, f90, wo_dot_n) * energy_factor
+    return torch.where((wi_dot_n > 0.0) & (wo_dot_n > 0.0), res, 0.0)
+
+
 def ndf_ggx(alpha_sqr, cos_theta):
     ct = torch.clamp(cos_theta, SPECULAR_EPSILON, 1.0 - SPECULAR_EPSILON)
     d = (ct * alpha_sqr - ct) * ct + 1.0
@@ -85,3 +95,28 @@ def pbr_specular(col, nrm, wo, wi, alpha, min_roughness: float = 0.08):
     w = f * d * g * 0.25 / torch.clamp(wo_dot_n, min=SPECULAR_EPSILON)
     frontfacing = (wo_dot_n > SPECULAR_EPSILON) & (wi_dot_n > SPECULAR_EPSILON)
     return torch.where(frontfacing, w, 0.0)
+
+
+def pbr_bsdf(kd, arm, pos, nrm, view_pos, light_pos, min_roughness: float = 0.08, bsdf: int = 0):
+    """Full PBR BSDF for a point light; ``arm`` = (specular strength,
+    roughness, metalness); ``bsdf`` 0 = Lambert diffuse, else Frostbite."""
+    wo = safe_normalize(view_pos - pos)
+    wi = safe_normalize(light_pos - pos)
+    spec_str, roughness, metallic = arm[..., 0:1], arm[..., 1:2], arm[..., 2:3]
+    ks = (0.04 * (1.0 - metallic) + kd * metallic) * (1.0 - spec_str)
+    kd_eff = kd * (1.0 - metallic)
+    if bsdf == 0:
+        diffuse = kd_eff * lambert(nrm, wi)
+    else:
+        diffuse = kd_eff * frostbite_diffuse(nrm, wi, wo, roughness)
+    return diffuse + pbr_specular(ks, nrm, wo, wi, roughness * roughness, min_roughness)
+
+
+def pbr_bsdf_separate(kd, ks_arm, pos, nrm, view_pos, wi, min_roughness: float = 0.08):
+    """(diffuse, specular) lobes for an incident direction ``wi``; the
+    diffuse lobe is demodulated (without kd), as the MC shading loop uses
+    it."""
+    wo = safe_normalize(view_pos - pos)
+    roughness, metallic = ks_arm[..., 1:2], ks_arm[..., 2:3]
+    spec_col = 0.04 * (1.0 - metallic) + kd * metallic
+    return lambert(nrm, wi), pbr_specular(spec_col, nrm, wo, wi, roughness * roughness, min_roughness)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -83,6 +84,93 @@ def rgb_to_srgb(f):
     if f.shape[-1] == 4:
         return torch.cat([conv(f[..., :3]), f[..., 3:]], dim=-1)
     return conv(f)
+
+
+def srgb_to_rgb(f):
+    """sRGB → linear on the first 3 channels; alpha passes through."""
+    def conv(x):
+        return torch.where(
+            x <= 0.04045, x / 12.92, torch.pow((torch.clamp(x, min=0.04045) + 0.055) / 1.055, 2.4),
+        )
+    if f.shape[-1] == 4:
+        return torch.cat([conv(f[..., :3]), f[..., 3:]], dim=-1)
+    return conv(f)
+
+
+def avg_pool_nhwc(x, size: int):
+    """Average pool (N, H, W, C) by an integer factor."""
+    if size == 1:
+        return x
+    n, h, w, c = x.shape
+    return x.reshape(n, h // size, size, w // size, size, c).mean(dim=(2, 4))
+
+
+def _linear_weights(n_in: int, n_out: int, device):
+    """(n_in, n_out) weights of ``jax.image.resize``'s triangle kernel with
+    antialiasing: half-pixel sample positions, the kernel widened by the
+    shrink factor when downsampling, each column normalised, samples
+    outside the input zeroed."""
+    inv = torch.tensor(n_in / n_out, dtype=torch.float32)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    x = torch.abs(sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]) / torch.clamp(inv, min=1.0)
+    wts = torch.clamp(1.0 - x, min=0.0)
+    total = wts.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    wts = torch.where(total.abs() > eps, wts / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], wts, 0.0).to(device)
+
+
+def scale_img_nhwc(x, size, method: str = "nearest"):
+    """Resize (N, H, W, C) to (H, W) = ``size`` as ``jax.image.resize``:
+    ``nearest``, or ``linear`` / ``bilinear`` (half-pixel, edges clamped
+    when growing, a widened triangle filter when shrinking)."""
+    n, h, w, c = x.shape
+    out_h, out_w = int(size[0]), int(size[1])
+    if method == "nearest":
+        for dim, (m, k) in ((1, (h, out_h)), (2, (w, out_w))):
+            if m != k:
+                idx = torch.floor((torch.arange(k, dtype=torch.float32) + 0.5) * m / k).long()
+                x = x.index_select(dim, idx.to(x.device))
+        return x
+    if method not in ("linear", "bilinear"):
+        raise ValueError(f"resize method {method!r}: nearest, linear or bilinear")
+    if h != out_h:
+        x = torch.einsum("nhwc,hH->nHwc", x, _linear_weights(h, out_h, x.device).to(x.dtype))
+    if w != out_w:
+        x = torch.einsum("nhwc,wW->nhWc", x, _linear_weights(w, out_w, x.device).to(x.dtype))
+    return x
+
+
+def pixel_grid(width: int, height: int, device=None):
+    """(H, W, 2) pixel-centre uv grid in [0, 1]."""
+    y = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
+    x = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) / width
+    gy, gx = torch.meshgrid(y, x, indexing="ij")
+    return torch.stack([gx, gy], dim=-1)
+
+
+def cube_face_dirs(uv):
+    """Outward directions (6, …, 3) of cube-face coordinates ``uv`` (…, 2) in
+    [-1, 1], OpenGL face order +x, −x, +y, −y, +z, −z (unnormalised)."""
+    gx, gy = uv[..., 0], uv[..., 1]
+    one = torch.ones_like(gx)
+    return torch.stack([
+        torch.stack([one, -gy, -gx], -1), torch.stack([-one, -gy, gx], -1),
+        torch.stack([gx, one, gy], -1), torch.stack([gx, -one, -gy], -1),
+        torch.stack([gx, -gy, one], -1), torch.stack([-gx, -gy, -one], -1),
+    ], dim=0)
+
+
+def latlong_to_cubemap(latlong, res: int):
+    """Nearest-texel lookup of a lat-long map (H, W, C) into a (6, res, res, C)
+    cubemap."""
+    dirs = safe_normalize(cube_face_dirs(pixel_grid(res, res, latlong.device) * 2.0 - 1.0))
+    tuv = dir_to_latlong_uv(dirs)
+    h, w = latlong.shape[:2]
+    px = torch.clamp((tuv[..., 0] * w).to(torch.int64), 0, w - 1)
+    py = torch.clamp((tuv[..., 1] * h).to(torch.int64), 0, h - 1)
+    return latlong[py, px]
 
 
 def mse_to_psnr(mse):

@@ -3,6 +3,9 @@
 indices equal) have zero area and contribute nothing."""
 from __future__ import annotations
 
+from collections import deque
+
+import numpy as np
 import torch
 
 from .compact import nonzero_compact
@@ -26,6 +29,30 @@ def auto_normals(v_pos, t_pos_idx, face_mask=None):
     default = torch.tensor([0.0, 0.0, 1.0], dtype=v_pos.dtype, device=v_pos.device)
     v_nrm = torch.where(dot(v_nrm, v_nrm) > 1e-20, v_nrm, default)
     return safe_normalize(v_nrm)
+
+
+def compute_tangents(v_pos, v_tex, v_nrm, t_pos_idx, t_tex_idx, face_mask=None):
+    """Per-vertex tangents of a UV mesh (mikktspace conventions): each face's
+    tangent from its position and UV edges, averaged over the faces at a
+    vertex, then orthogonalised against ``v_nrm``."""
+    pos = [v_pos[t_pos_idx[:, i]] for i in range(3)]
+    tex = [v_tex[t_tex_idx[:, i]] for i in range(3)]
+    uve1, uve2 = tex[1] - tex[0], tex[2] - tex[0]
+    pe1, pe2 = pos[1] - pos[0], pos[2] - pos[0]
+    nom = pe1 * uve2[..., 1:2] - pe2 * uve1[..., 1:2]
+    denom = uve1[..., 0:1] * uve2[..., 1:2] - uve1[..., 1:2] * uve2[..., 0:1]
+    tang = nom / torch.where(denom > 0.0, torch.clamp(denom, min=1e-6), torch.clamp(denom, max=-1e-6))
+    ones = torch.ones_like(tang)
+    if face_mask is not None:
+        tang = tang * face_mask[:, None].to(tang.dtype)
+        ones = ones * face_mask[:, None].to(ones.dtype)
+    tangents, tansum = torch.zeros_like(v_nrm), torch.zeros_like(v_nrm)
+    for i in range(3):
+        idx = t_pos_idx[:, i]
+        tangents = tangents + torch.zeros_like(v_nrm).index_add(0, idx, tang)
+        tansum = tansum + torch.zeros_like(v_nrm).index_add(0, idx, ones)
+    tangents = safe_normalize(tangents / torch.clamp(tansum, min=1.0))
+    return safe_normalize(tangents - dot(tangents, v_nrm) * v_nrm)
 
 
 def compute_edges(t_pos_idx):
@@ -66,3 +93,34 @@ def sample_surface(draws, v_pos, t_pos_idx, n_samples: int, face_mask=None):
     b2 = su * r[:, 1:2]
     v0, v1, v2 = (v_pos[t_pos_idx[fid, k]] for k in range(3))
     return v0 * b0 + v1 * b1 + v2 * b2
+
+
+def orient_faces(faces: np.ndarray) -> np.ndarray:
+    """A copy of ``faces`` (F, 3), on the host, wound consistently over each
+    edge-connected component: a breadth-first walk from the component's
+    first face (whose winding is kept) reverses every neighbour that runs a
+    shared edge the same way.  The extractors' faces are not wound
+    consistently (about half face each way, as the JAX package's); a UV
+    unwrap that grows charts by signed normals needs them to be."""
+    out = np.asarray(faces).tolist()
+    by_edge: dict[tuple[int, int], list[int]] = {}
+    for i, (a, b, c) in enumerate(out):
+        for u, v in ((a, b), (b, c), (c, a)):
+            by_edge.setdefault((min(u, v), max(u, v)), []).append(i)
+    seen = [False] * len(out)
+    for seed in range(len(out)):
+        if seen[seed]:
+            continue
+        seen[seed] = True
+        queue = deque([seed])
+        while queue:
+            a, b, c = out[queue.popleft()]
+            for u, v in ((a, b), (b, c), (c, a)):
+                for j in by_edge[(min(u, v), max(u, v))]:
+                    if not seen[j]:
+                        seen[j] = True
+                        x, y, z = out[j]
+                        if (x, y) == (u, v) or (y, z) == (u, v) or (z, x) == (u, v):
+                            out[j] = [z, y, x]
+                        queue.append(j)
+    return np.asarray(out, dtype=np.asarray(faces).dtype).reshape(-1, 3)

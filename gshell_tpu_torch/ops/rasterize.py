@@ -553,15 +553,17 @@ def _recompute_bary(v_clip, faces, tri_id, px, py, h, w):
     return pc[:, :2]
 
 
-def interpolate(attr, rast: Rast, faces, v_clip=None):
+def interpolate(attr, rast: Rast, faces, v_clip=None, pos_faces=None):
     """Blend per-vertex attributes (V, C) at each pixel → (H, W, C); zeros at
     background.  With ``v_clip`` the barycentrics are recomputed
-    differentiably (gradients reach positions)."""
+    differentiably (gradients reach positions), from the triangles
+    ``pos_faces`` (default ``faces``) of ``v_clip``: pass the position
+    faces when ``faces`` index another buffer, as UV faces do."""
     h, w = rast.tri_id.shape
     tri_id = rast.tri_id.reshape(-1)
     if v_clip is not None:
         px, py = _pixel_grid(h, w, attr.device)
-        b01 = _recompute_bary(v_clip, faces, tri_id, px, py, h, w)
+        b01 = _recompute_bary(v_clip, faces if pos_faces is None else pos_faces, tri_id, px, py, h, w)
     else:
         b01 = rast.bary.reshape(-1, 2)
     b2 = 1.0 - b01.sum(-1, keepdim=True)

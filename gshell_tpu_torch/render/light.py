@@ -8,7 +8,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.math import dir_to_latlong_uv, latlong_uv_to_dir
+from ..ops.math import dir_to_latlong_uv, latlong_uv_to_dir, scale_img_nhwc
 
 _ONE_MINUS = 0.99999994  # largest float32 below 1
 
@@ -103,3 +103,9 @@ def sample_light(light: EnvLight, u, v):
     uv = torch.stack([(x.to(u.dtype) + rx) / w, (y.to(v.dtype) + ry) / h], dim=-1)
     dirs = latlong_uv_to_dir(uv).reshape(*shp, 3)
     return dirs, light_pdf(light, dirs)
+
+
+def generate_image(light: EnvLight, res):
+    """The base map resized to ``res`` = (H, W) as ``jax.image.resize``'s
+    ``linear`` does (a widened triangle filter when it shrinks)."""
+    return scale_img_nhwc(light.base[None], res, method="linear")[0]

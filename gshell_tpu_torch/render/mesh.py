@@ -91,19 +91,32 @@ def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def save_obj(path: str, v_pos, faces, face_valid=None) -> int:
+def save_obj(path: str, v_pos, faces, face_valid=None, uvs=None, uv_idx=None, mtl_name: str | None = None) -> int:
     """OBJ writer: drops padded faces (``face_valid`` False), degenerate faces
-    (two equal indices) and unreferenced vertices.  Returns the face count."""
+    (two equal indices) and unreferenced vertices.  ``uvs`` / ``uv_idx``
+    (parallel to ``faces``) add ``vt`` rows and ``f v/vt`` faces, ``v``
+    unflipped; ``mtl_name`` adds ``mtllib`` / ``usemtl``.  Writes the JAX
+    package's bytes for the same inputs.  Returns the face count."""
     v, f = _np(v_pos), _np(faces)
+    fuv = None if uv_idx is None else _np(uv_idx)
     if face_valid is not None:
-        f = f[_np(face_valid).astype(bool)]
-    f = f[~((f[:, 0] == f[:, 1]) | (f[:, 1] == f[:, 2]) | (f[:, 0] == f[:, 2]))]
+        sel = _np(face_valid).astype(bool)
+        f, fuv = f[sel], None if fuv is None else fuv[sel]
+    keep = ~((f[:, 0] == f[:, 1]) | (f[:, 1] == f[:, 2]) | (f[:, 0] == f[:, 2]))
+    f, fuv = f[keep], None if fuv is None else fuv[keep]
     used = np.unique(f.reshape(-1))
     remap = np.full(v.shape[0], -1, np.int64)
     remap[used] = np.arange(used.shape[0])
     v, f = v[used], remap[f]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as out:
+        if mtl_name is not None:
+            out.write(f"mtllib {mtl_name}.mtl\nusemtl {mtl_name}\n")
         out.write("".join(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n" for p in v))
-        out.write("".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f))
+        if fuv is None:
+            out.write("".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f))
+        else:
+            out.write("".join(f"vt {t[0]:.6f} {t[1]:.6f}\n" for t in _np(uvs)))
+            out.write("".join(f"f {a + 1}/{ta + 1} {b + 1}/{tb + 1} {c + 1}/{tc + 1}\n"
+                              for (a, b, c), (ta, tb, tc) in zip(f, fuv)))
     return int(f.shape[0])

@@ -1,10 +1,12 @@
 """Differentiable mesh → image-buffer rendering (PyTorch twin of
-``gshell_tpu/render/render.py``, neural-material path): clip transform →
-binned rasterization (the scan off the 16-pixel tile grid) → G-buffer
-interpolation → foreground compaction → hash-grid material → Monte-Carlo
-environment shading → bilateral denoise → composite + silhouette
-antialias.  :func:`render_second_layer` shades the second-nearest surface
-the same way, without the denoiser."""
+``gshell_tpu/render/render.py``): clip transform → binned rasterization (the
+scan off the 16-pixel tile grid) → G-buffer interpolation → foreground
+compaction → material (the hash-grid field, or Texture2D maps at
+interpolated UVs) → Monte-Carlo environment shading → bilateral denoise
+(before or after modulation) → composite + silhouette antialias, at
+``resolution·spp`` and average-pooled back down.  :func:`render_second_layer`
+shades the second-nearest surface the same way, without the denoiser;
+:func:`render_uv` bakes the neural material into a UV atlas."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -13,18 +15,28 @@ import torch
 
 from ..ops import bsdf as bsdf_ops
 from ..ops.denoiser import bilateral_denoiser
-from ..ops.math import abs_tie_up, safe_normalize, xfm_points
+from ..ops.math import abs_tie_up, avg_pool_nhwc, safe_normalize, xfm_points
 from ..ops.mesh_ops import face_normals as compute_face_normals
-from ..ops.rasterize import TILE, antialias, bary_screen_derivs, interpolate, rasterize_peel, rasterize_tiled_peel
+from ..ops.rasterize import (TILE, antialias, bary_screen_derivs, interpolate, rasterize, rasterize_peel,
+                             rasterize_tiled_peel)
 from ..ops.shade import ShadowField, env_shade
+from . import texture as tex2d
 from .light import EnvLight
-from .material import MLPTexture3DConfig, sample_mlp_texture
+from .material import MLPTexture3DConfig, TextureMaterial, sample_mlp_texture
+
+SHADING_BSDFS = ("pbr", "diffuse", "white")  # shaded by the MC walk; "normal", "kd", "ks" show a buffer
 
 
 class RenderFlags(NamedTuple):
     resolution: tuple = (512, 512)
     n_samples: int = 8
+    # supersampling: rasterize and shade at resolution·spp, average-pool
+    # every image buffer back down
+    spp: int = 1
     bsdf: str = "pbr"
+    # denoise diffuse and specular light before modulation by kd (one
+    # 6-channel stencil), else the modulated colour (3 channels)
+    denoiser_demodulate: bool = True
     use_denoiser: bool = True
     jitter_std: float = 0.01  # world-space material jitter
     # foreground-compaction budget as a fraction of the image (None = off)
@@ -35,11 +47,12 @@ class RenderFlags(NamedTuple):
     max_pairs: int | None = None  # stage A's pair buffer (None: max(8·F, 4096))
 
 
-def rasterize_layers(v_clip, faces, flags: RenderFlags, n_layers: int = 1) -> list:
-    """The first ``n_layers`` (1 or 2) depth layers of a view: the binned
-    peel on the 16-pixel tile grid (stage B, then its second layer over the
-    same segments), else the scan, as JAX's ``render_mesh`` chooses."""
-    h, w = flags.resolution
+def rasterize_layers(v_clip, faces, flags: RenderFlags, n_layers: int = 1, resolution=None) -> list:
+    """The first ``n_layers`` (1 or 2) depth layers of a view at
+    ``resolution`` (default ``flags.resolution``): the binned peel on the
+    16-pixel tile grid (stage B, then its second layer over the same
+    segments), else the scan, as JAX's ``render_mesh`` chooses."""
+    h, w = resolution or flags.resolution
     if h % TILE == 0 and w % TILE == 0:
         return rasterize_tiled_peel(v_clip, faces, (h, w), max_pairs=flags.max_pairs, n_layers=n_layers)
     return rasterize_peel(v_clip, faces, (h, w), n_layers=n_layers)
@@ -100,23 +113,28 @@ def _roll(img, shift):
     return torch.roll(img, shifts=(int(shift[0]), int(shift[1])), dims=(0, 1))
 
 
-def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params: dict, mat_cfg: MLPTexture3DConfig,
+def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params, mat_cfg: MLPTexture3DConfig,
                 mvp, campos, light: EnvLight, flags: RenderFlags, background=None,
                 visibility: ShadowField | None = None, shadow_scale: float = 1.0,
-                denoiser_sigma: float = 2.0, n_layers: int = 1) -> dict:
+                denoiser_sigma: float = 2.0, n_layers: int = 1, v_tex=None, t_tex_idx=None) -> dict:
     """Render one view → the reference's buffer dict, (H, W, C) layout.
-    Draws (names under ``draws``): ``tangent``, ``jitter_off``, ``jitter``,
-    ``nrm_shift``, ``tex/hashgrid/sel`` and ``shade/...``.  With
-    ``n_layers`` 2 the raster peels a second layer from the same bins and
-    stage-B winners, and ``rast_second`` holds it for
-    :func:`render_second_layer`."""
-    h, w = flags.resolution
+
+    ``mat_params``: the neural material's dict, or a :class:`TextureMaterial`
+    sampled at the UVs ``v_tex`` (T, 2) through ``t_tex_idx`` (F, 3).
+    Draws (names under ``draws``): ``tangent``, ``nrm_shift`` and
+    ``shade/...``; the neural material's ``jitter_off``, ``jitter`` and
+    ``tex/hashgrid/sel``, a texture's ``tex_shift``.  With ``n_layers`` 2,
+    ``rast_second`` holds layer 2 for :func:`render_second_layer` at the
+    base resolution: at ``spp`` 1 peeled from the same bins and stage-B
+    winners, else from a second raster of the view at base resolution."""
+    spp = flags.spp
+    h, w = flags.resolution[0] * spp, flags.resolution[1] * spp
     dev = verts.device
     bsdf = flags.bsdf
 
     # ---- geometry pass ----------------------------------------------------
     v_clip = xfm_points(verts, mvp)
-    layers = rasterize_layers(v_clip, faces, flags, n_layers)
+    layers = rasterize_layers(v_clip, faces, flags, n_layers if spp == 1 else 1, (h, w))
     rast = layers[0]
     mask = (rast.tri_id > 0).float()[..., None]
 
@@ -137,11 +155,13 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params: dict, mat_cfg: MLP
     gb_tangent = torch.linalg.cross(noise, gb_normal_smooth)
 
     db = bary_screen_derivs(rast, faces, v_clip)
-    tri_clip = v_clip[faces[fid]]  # (H, W, 3, 4)
-    e02 = tri_clip[..., 0, :] - tri_clip[..., 2, :]
-    e12 = tri_clip[..., 1, :] - tri_clip[..., 2, :]
-    dattr_dx = db[..., 0:1] * e02 + db[..., 2:3] * e12
-    dattr_dy = db[..., 1:2] * e02 + db[..., 3:4] * e12
+
+    def screen_derivs(tri):  # d(attr)/dx, d(attr)/dy of per-corner values (H, W, 3, C)
+        e02 = tri[..., 0, :] - tri[..., 2, :]
+        e12 = tri[..., 1, :] - tri[..., 2, :]
+        return db[..., 0:1] * e02 + db[..., 2:3] * e12, db[..., 1:2] * e02 + db[..., 3:4] * e12
+
+    dattr_dx, dattr_dy = screen_derivs(v_clip[faces[fid]])
     eps = 1e-5
     z0 = torch.clamp(clip_i[..., 2:3], min=eps) / torch.clamp(clip_i[..., 3:4], min=eps)
     dz = torch.abs(dattr_dx[..., 2:3]) + torch.abs(dattr_dy[..., 2:3])
@@ -163,34 +183,54 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params: dict, mat_cfg: MLP
 
     # ---- material pass ------------------------------------------------------
     omit_o = torch.tensor([0.0, 1.0, 1.0], device=dev)
-    tex_draws = draws.child("tex")
-    pos_m = compact(gb_pos) if idx_c is not None else gb_pos.reshape(p_full, 3)
-    if idx_c is not None and flags.jitter_tap_frac < 1.0:
-        # jitter tap on a random circular block [off, off + pj) of the rows
-        n_sl = pos_m.shape[0]
-        pj = min(n_sl, max(1024, int(n_sl * flags.jitter_tap_frac) // 256 * 256))
-        off = int(draws.randint("jitter_off", (), 0, n_sl))
-        pos_sel = torch.cat([pos_m, pos_m[:pj]], dim=0)[off:off + pj]
-        pos_j = pos_sel + flags.jitter_std * draws.normal("jitter", (pj, 3))
-        both = sample_mlp_texture(mat_params, mat_cfg, torch.cat([pos_m, pos_j], dim=0),
-                                  draws=tex_draws)
-        tex_main, tex_j = both[:n_sl], both[n_sl:]
-        tm_sel = torch.cat([tex_main, tex_main[:pj]], dim=0)[off:off + pj]
-        grad_rows = abs_tie_up(tex_j - tm_sel) * (n_sl / pj)
-        gr_ext = torch.nn.functional.pad(grad_rows, (0, 0, off, n_sl - off))
-        head = gr_ext[:n_sl]
-        grad_full = head + torch.nn.functional.pad(gr_ext[n_sl:], (0, 0, 0, n_sl - pj))
-        tex_img = scatter(torch.cat([tex_main, grad_full], dim=-1), 12)
+    perturbed_nrm = None
+    if isinstance(mat_params, TextureMaterial):
+        if v_tex is None or t_tex_idx is None:
+            raise ValueError("a TextureMaterial needs the v_tex / t_tex_idx UV attributes")
+        # UVs interpolated with the position triangle's barycentrics
+        gb_texc = interpolate(v_tex, rast, t_tex_idx, v_clip=v_clip, pos_faces=faces)
+        duv_dx, duv_dy = screen_derivs(v_tex[t_tex_idx[fid]])
+        uv_da = torch.cat([duv_dx[..., 0:1], duv_dy[..., 0:1], duv_dx[..., 1:2], duv_dy[..., 1:2]], -1).detach()
+        kd4 = tex2d.sample(mat_params.kd, gb_texc, uv_da)
+        alpha = kd4[..., 3:4] if kd4.shape[-1] == 4 else torch.ones_like(kd4[..., 0:1])
+        kd = kd4[..., 0:3]
+        ks = tex2d.sample(mat_params.ks, gb_texc, uv_da)[..., 0:3]
+        if mat_params.normal is not None:
+            perturbed_nrm = tex2d.sample(mat_params.normal, gb_texc, uv_da)[..., 0:3]
+        # smoothness taps one screen pixel away
+        shift_t = draws.randint("tex_shift", (2,), -1, 2)
+        grad_weight = mask * _roll(mask, shift_t)
+        kd_grad = abs_tie_up(_roll(kd, shift_t) - kd) * grad_weight
+        ks_grad = abs_tie_up(_roll(ks, shift_t) - ks) * omit_o * grad_weight
     else:
-        jit_pos = pos_m + flags.jitter_std * draws.normal("jitter", pos_m.shape)
-        both = sample_mlp_texture(mat_params, mat_cfg, torch.stack([pos_m, jit_pos]),
-                                  draws=tex_draws)
-        tex_rows = torch.cat([both[0], abs_tie_up(both[1] - both[0])], dim=-1)
-        tex_img = scatter(tex_rows, 12) if idx_c is not None else tex_rows.reshape(h, w, 12)
-    kd, ks = tex_img[..., 0:3], tex_img[..., 3:6]
-    kd_grad = tex_img[..., 6:9] * mask
-    ks_grad = tex_img[..., 9:12] * omit_o * mask
-    alpha = torch.ones_like(kd[..., 0:1])
+        tex_draws = draws.child("tex")
+        pos_m = compact(gb_pos) if idx_c is not None else gb_pos.reshape(p_full, 3)
+        if idx_c is not None and flags.jitter_tap_frac < 1.0:
+            # jitter tap on a random circular block [off, off + pj) of the rows
+            n_sl = pos_m.shape[0]
+            pj = min(n_sl, max(1024, int(n_sl * flags.jitter_tap_frac) // 256 * 256))
+            off = int(draws.randint("jitter_off", (), 0, n_sl))
+            pos_sel = torch.cat([pos_m, pos_m[:pj]], dim=0)[off:off + pj]
+            pos_j = pos_sel + flags.jitter_std * draws.normal("jitter", (pj, 3))
+            both = sample_mlp_texture(mat_params, mat_cfg, torch.cat([pos_m, pos_j], dim=0),
+                                      draws=tex_draws)
+            tex_main, tex_j = both[:n_sl], both[n_sl:]
+            tm_sel = torch.cat([tex_main, tex_main[:pj]], dim=0)[off:off + pj]
+            grad_rows = abs_tie_up(tex_j - tm_sel) * (n_sl / pj)
+            gr_ext = torch.nn.functional.pad(grad_rows, (0, 0, off, n_sl - off))
+            head = gr_ext[:n_sl]
+            grad_full = head + torch.nn.functional.pad(gr_ext[n_sl:], (0, 0, 0, n_sl - pj))
+            tex_img = scatter(torch.cat([tex_main, grad_full], dim=-1), 12)
+        else:
+            jit_pos = pos_m + flags.jitter_std * draws.normal("jitter", pos_m.shape)
+            both = sample_mlp_texture(mat_params, mat_cfg, torch.stack([pos_m, jit_pos]),
+                                      draws=tex_draws)
+            tex_rows = torch.cat([both[0], abs_tie_up(both[1] - both[0])], dim=-1)
+            tex_img = scatter(tex_rows, 12) if idx_c is not None else tex_rows.reshape(h, w, 12)
+        kd, ks = tex_img[..., 0:3], tex_img[..., 3:6]
+        kd_grad = tex_img[..., 6:9] * mask
+        ks_grad = tex_img[..., 9:12] * omit_o * mask
+        alpha = torch.ones_like(kd[..., 0:1])
 
     shift = draws.randint("nrm_shift", (2,), -1, 2)
     nrm_grad = abs_tie_up(_roll(gb_normal_smooth, shift) - gb_normal_smooth) * mask
@@ -198,46 +238,60 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params: dict, mat_cfg: MLP
     # ---- shading normal -----------------------------------------------------
     view_pos = campos.reshape(1, 1, 3).expand_as(gb_pos)
     gb_normal = bsdf_ops.prepare_shading_normal(
-        gb_pos, view_pos, None, gb_normal_smooth, gb_tangent, gb_geo_normal,
+        gb_pos, view_pos, perturbed_nrm, gb_normal_smooth, gb_tangent, gb_geo_normal,
         two_sided_shading=True, opengl=True,
     )
 
     # ---- Monte-Carlo environment shading ------------------------------------
-    kd_eff = torch.ones_like(kd) if bsdf == "white" else kd
-    ro = gb_pos + gb_normal * 0.001
-    if idx_c is not None:
-        packed = compact(torch.cat([ro, gb_pos, gb_normal, kd_eff, ks, mask], dim=-1))
-        shade_in = (
-            packed[:, 15:16], packed[:, 0:3], packed[:, 3:6], packed[:, 6:9],
-            campos.reshape(1, 3).expand(packed.shape[0], 3), packed[:, 9:12], packed[:, 12:15],
+    diffuse_accum = specular_accum = None
+    if bsdf in SHADING_BSDFS:
+        kd_eff = torch.ones_like(kd) if bsdf == "white" else kd
+        ro = gb_pos + gb_normal * 0.001
+        if idx_c is not None:
+            packed = compact(torch.cat([ro, gb_pos, gb_normal, kd_eff, ks, mask], dim=-1))
+            shade_in = (
+                packed[:, 15:16], packed[:, 0:3], packed[:, 3:6], packed[:, 6:9],
+                campos.reshape(1, 3).expand(packed.shape[0], 3), packed[:, 9:12], packed[:, 12:15],
+            )
+        else:
+            shade_in = (
+                mask.reshape(p_full, 1), ro.reshape(p_full, 3), gb_pos.reshape(p_full, 3),
+                gb_normal.reshape(p_full, 3), view_pos.reshape(p_full, 3),
+                kd_eff.reshape(p_full, 3), ks.reshape(p_full, 3),
+            )
+        out = env_shade(
+            draws.child("shade"), *shade_in, light, n_samples_x=flags.n_samples, bsdf=bsdf,
+            shadow_scale=shadow_scale, visibility=visibility, mc_block=flags.mc_block,
+            light_bf16=flags.light_bf16,
         )
-    else:
-        shade_in = (
-            mask.reshape(p_full, 1), ro.reshape(p_full, 3), gb_pos.reshape(p_full, 3),
-            gb_normal.reshape(p_full, 3), view_pos.reshape(p_full, 3),
-            kd_eff.reshape(p_full, 3), ks.reshape(p_full, 3),
-        )
-    out = env_shade(
-        draws.child("shade"), *shade_in, light, n_samples_x=flags.n_samples, bsdf=bsdf,
-        shadow_scale=shadow_scale, visibility=visibility, mc_block=flags.mc_block,
-        light_bf16=flags.light_bf16,
-    )
-    if idx_c is not None:
-        ds = scatter(torch.cat([out.diffuse, out.specular], dim=-1), 6)
-    else:
-        ds = torch.cat([out.diffuse, out.specular], dim=-1).reshape(h, w, 6)
-    if flags.use_denoiser:  # diffuse and specular share the guides: one call
-        ds = bilateral_denoiser(ds, gb_normal, gb_depth, denoiser_sigma)
-    diffuse_accum, specular_accum = ds[..., 0:3], ds[..., 3:6]
+        if idx_c is not None:
+            ds = scatter(torch.cat([out.diffuse, out.specular], dim=-1), 6)
+        else:
+            ds = torch.cat([out.diffuse, out.specular], dim=-1).reshape(h, w, 6)
+        if flags.use_denoiser and flags.denoiser_demodulate:  # diffuse and specular share the guides: one call
+            ds = bilateral_denoiser(ds, gb_normal, gb_depth, denoiser_sigma)
+        diffuse_accum, specular_accum = ds[..., 0:3], ds[..., 3:6]
 
-    if bsdf in ("white", "diffuse"):
-        shaded_col = diffuse_accum * kd_eff
+        if bsdf in ("white", "diffuse"):
+            shaded_col = diffuse_accum * kd_eff
+        else:
+            shaded_col = diffuse_accum * (kd_eff * (1.0 - ks[..., 2:3])) + specular_accum
+        if flags.use_denoiser and not flags.denoiser_demodulate:
+            shaded_col = bilateral_denoiser(shaded_col, gb_normal, gb_depth, denoiser_sigma)
+    elif bsdf == "normal":
+        shaded_col = (gb_normal + 1.0) * 0.5
+    elif bsdf == "kd":
+        shaded_col = kd
+    elif bsdf == "ks":
+        shaded_col = ks
     else:
-        shaded_col = diffuse_accum * (kd_eff * (1.0 - ks[..., 2:3])) + specular_accum
+        raise ValueError(f"invalid BSDF {bsdf!r}")
 
     # ---- composite + antialias ----------------------------------------------
     if background is None:
         background = torch.zeros((h, w, 3), device=dev)
+    elif spp > 1 and background.shape[0] != h:
+        background = background.repeat_interleave(spp, dim=0).repeat_interleave(spp, dim=1)
     m_a = mask * alpha
     comp = background * (1.0 - m_a) + shaded_col * m_a
     shaded = antialias(torch.cat([comp, m_a], dim=-1), rast, v_clip, faces)
@@ -257,11 +311,19 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params: dict, mat_cfg: MLP
         "normal": torch.cat([gb_normal * mask, alpha], -1),
         "geometric_normal": torch.cat([gb_geo_normal, alpha], -1),
         "z_grad": torch.cat([gb_depth, torch.zeros_like(alpha), alpha], -1),
-        "diffuse_light": torch.cat([diffuse_accum, alpha], -1),
-        "specular_light": torch.cat([specular_accum, alpha], -1),
     }
+    if diffuse_accum is not None:
+        buffers["diffuse_light"] = torch.cat([diffuse_accum, alpha], -1)
+        buffers["specular_light"] = torch.cat([specular_accum, alpha], -1)
+    if perturbed_nrm is not None:
+        pn_grad = 1.0 - safe_normalize(
+            safe_normalize(_roll(perturbed_nrm, shift)) + safe_normalize(perturbed_nrm))[..., 2:3]
+        buffers["perturbed_nrm"] = torch.cat([perturbed_nrm, alpha], -1)
+        buffers["perturbed_nrm_grad"] = torch.cat([pn_grad.expand_as(perturbed_nrm) * mask, alpha], -1)
     if msdf is not None:
         buffers["msdf_image"] = msdf_image
+    if spp > 1:  # every image buffer back to the base resolution
+        buffers = {k: avg_pool_nhwc(v[None], spp)[0] for k, v in buffers.items()}
 
     vis_vert = torch.zeros((verts.shape[0],), dtype=torch.bool, device=dev)
     vis_vert[faces[fid[rast.tri_id > 0]].reshape(-1)] = True
@@ -269,7 +331,7 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params: dict, mat_cfg: MLP
     buffers["n_raster_dropped"] = rast.dropped
     buffers["n_px_dropped"] = px_dropped
     if n_layers > 1:
-        buffers["rast_second"] = layers[1]
+        buffers["rast_second"] = layers[1] if spp == 1 else rasterize_layers(v_clip, faces, flags, 2)[1]
     return buffers
 
 
@@ -334,3 +396,20 @@ def render_second_layer(draws, verts, faces, v_nrm, mat_params: dict, mat_cfg: M
         "invdepth_second": torch.cat([(1.0 / dist) * mask, torch.ones_like(mask)], -1),
         "n_px_dropped_second": px_dropped2,
     }
+
+
+@torch.no_grad()
+def render_uv(v_tex, t_tex_idx, v_pos, t_pos_idx, resolution, mat_params: dict, mat_cfg: MLPTexture3DConfig):
+    """Bake the neural material into a UV atlas (JAX ``render_uv``): the mesh
+    rasterized in UV space by the scan (clip x, y = 2·uv − 1, z = 0: the
+    least face id wins where charts overlap), world positions interpolated
+    through ``t_pos_idx``, the material sampled there.  Texels that no chart
+    covers get the material at the origin, as JAX's do.  Row 0 is v = 0.
+    → (mask (H, W, 1), kd (H, W, 3), ks (H, W, 3))."""
+    uv_clip = v_tex * 2.0 - 1.0
+    uv_clip4 = torch.cat([uv_clip, torch.zeros_like(uv_clip[..., :1]), torch.ones_like(uv_clip[..., :1])], dim=-1)
+    rast = rasterize(uv_clip4, t_tex_idx, resolution, chunk=256)
+    gb_pos = interpolate(v_pos, rast, t_pos_idx)
+    all_tex = sample_mlp_texture(mat_params, mat_cfg, gb_pos)
+    mask = (rast.tri_id > 0).float()[..., None]
+    return mask, all_tex[..., 0:3], all_tex[..., 3:6]

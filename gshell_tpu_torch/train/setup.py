@@ -73,10 +73,6 @@ def unported_options(flags: Flags) -> list[str]:
     out = []
     if not flags.use_sdf_mlp or flags.use_msdf_mlp:
         out.append("use_sdf_mlp: false / use_msdf_mlp: true (direct-SDF and mSDF-MLP fields, ROADMAP D.1)")
-    if flags.spp != 1 or not flags.denoiser_demodulate or flags.bsdf not in ("pbr", "diffuse", "white"):
-        out.append(f"spp {flags.spp}, denoiser_demodulate {flags.denoiser_demodulate}, bsdf "
-                   f"{flags.bsdf!r} (only spp 1, denoising before modulation and the pbr / diffuse / "
-                   "white BSDFs are ported; the rest is ROADMAP D.5)")
     return out
 
 
@@ -111,8 +107,8 @@ def reconstructor_from_flags(flags: Flags, device, n_samples: int | None = None)
     )
     rflags = RenderFlags(
         resolution=tuple(flags.train_res), n_samples=flags.n_samples if n_samples is None else n_samples,
-        bsdf=flags.bsdf,
-        use_denoiser=flags.denoiser == "bilateral", shade_budget=flags.shade_budget,
+        spp=flags.spp, bsdf=flags.bsdf, use_denoiser=flags.denoiser == "bilateral",
+        denoiser_demodulate=flags.denoiser_demodulate, shade_budget=flags.shade_budget,
         max_pairs=flags.max_pairs,
     )
     lr_pos, lr_mat, lr_lgt = learning_rates(flags)

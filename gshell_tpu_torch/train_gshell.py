@@ -18,8 +18,13 @@ state and ``probe.hdr``.  ``--resume`` continues from ``state.pt`` with the
 same draw and data streams, so a run split in two equals one run straight
 through.  ``use_flexicubes`` in the config, or ``--flexicubes``, trains
 G-Shell on FlexiCubes over the config's ``voxel_grid`` (its ``state.pt``
-also holds the per-cube weights and their Adam moments).  Settings the port cannot honour yet exit non-zero and name their
-ROADMAP item.
+also holds the per-cube weights and their Adam moments).
+``--bake-texture RES`` ends the run by UV-unwrapping the final mesh (on the
+host) and baking the material into RES² atlases on the run's device:
+``texture_kd.png``, ``texture_ks.png``, ``mesh_textured.obj`` and
+``baked.mtl``, which ``load_obj(with_attrs=True)``, ``load_mtl`` and
+``merge_materials`` read back.  Settings the port cannot honour yet exit
+non-zero and name their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,9 +37,12 @@ import torch
 
 from .data.datasets import DatasetDeepFashion, DatasetMesh, DatasetNeRF
 from .ops.math import rgb_to_srgb
+from .ops.mesh_ops import orient_faces
+from .ops.uv_unwrap import unwrap
 from .render.light import update_pdf
+from .render.material import load_mtl, merge_materials, texture_material
 from .render.mesh import load_obj, save_obj, unit_size
-from .render.render import render_mesh
+from .render.render import render_mesh, render_uv
 from .train.reconstruct import load_state, save_state
 from .train.setup import (add_bool, gt_light_material, kernel_launches, launches_since,
                           reconstructor_from_flags, resolve_device, unported_options)
@@ -60,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     add_bool(p, "--flexicubes", help="FlexiCubes geometry on the config's voxel_grid (as use_flexicubes)")
     p.add_argument("--bake-texture", type=int, default=0, metavar="RES",
-                   help="UV-unwrap and bake kd/ks atlases (not yet ported: exits)")
+                   help="after training, UV-unwrap the mesh and bake kd/ks atlases at RES² "
+                        "(texture_kd.png, texture_ks.png, mesh_textured.obj, baked.mtl)")
     add_bool(p, "--snapshot-images", default=True,
              help="render a [render | reference] image at each save_interval (default 1)")
     add_bool(p, "--resume", help="continue from OUT_DIR/state.pt if it exists")
@@ -92,6 +101,79 @@ def save_mesh(rec, state, out_dir, it) -> int:
     return save_obj(os.path.join(out_dir, f"mesh_{it:06d}.obj"), mesh.verts, mesh.faces, mesh.face_valid)
 
 
+def chart_count(uv_idx: np.ndarray, n_uv: int) -> int:
+    """Connected components of the UV faces (charts share UV vertices only
+    inside themselves), by min-label propagation with pointer jumping."""
+    lab = np.arange(n_uv)
+    while True:
+        new = lab.copy()
+        np.minimum.at(new, uv_idx.reshape(-1), np.repeat(lab[uv_idx].min(axis=1), 3))
+        new = new[new]
+        if np.array_equal(new, lab):
+            return int(np.unique(lab[uv_idx.reshape(-1)]).shape[0])
+        lab = new
+
+
+@torch.no_grad()
+def bake_texture(rec, state, out_dir: str, res: int) -> dict:
+    """The final mesh without invalid or degenerate faces and with its
+    vertices compacted, its faces wound consistently (``orient_faces``) and
+    UV-unwrapped on the host (``unwrap``), its material baked into res² kd /
+    ks atlases by :func:`render_uv` on the run's device; writes
+    ``texture_kd.png``, ``texture_ks.png``, ``mesh_textured.obj`` and
+    ``baked.mtl`` (JAX's names and formats).  JAX unwraps the extractor's
+    faces as they are wound, which cuts its atlas into charts of a few faces
+    (ROADMAP C).  → the bake's record: seconds of the orientation and unwrap
+    and of ``render_uv``, charts, UV vertices, faces, the atlas's covered
+    fraction and whether every texel is finite; a mesh without faces writes
+    nothing (``faces`` 0)."""
+    mesh = rec.geo.get_mesh(state.params_geo)
+    f = mesh.faces[mesh.face_valid]
+    f = f[~((f[:, 0] == f[:, 1]) | (f[:, 1] == f[:, 2]) | (f[:, 0] == f[:, 2]))]
+    if f.shape[0] == 0:
+        print(f"bake skipped: the final mesh has no faces; nothing written to {out_dir}", flush=True)
+        return {"faces": 0}
+    used, inv = torch.unique(f.reshape(-1), return_inverse=True)
+    verts, dev = mesh.verts[used], mesh.verts.device
+    t0 = time.time()
+    faces_np = orient_faces(inv.reshape(-1, 3).cpu().numpy())
+    uvs, uv_idx = unwrap(verts.cpu().numpy(), faces_np)
+    t_unwrap = time.time() - t0
+    faces = torch.as_tensor(faces_np, device=dev)
+    _sync(dev)
+    t0 = time.time()
+    mask, kd, ks = render_uv(torch.as_tensor(uvs, device=dev), torch.as_tensor(uv_idx, device=dev).long(),
+                             verts, faces, (res, res), state.params_mat, rec.mat_cfg)
+    _sync(dev)
+    t_bake = time.time() - t0
+    save_image(os.path.join(out_dir, "texture_kd.png"), kd.cpu().numpy())
+    save_image(os.path.join(out_dir, "texture_ks.png"), ks.cpu().numpy())
+    save_obj(os.path.join(out_dir, "mesh_textured.obj"), verts, faces, uvs=uvs, uv_idx=uv_idx, mtl_name="baked")
+    with open(os.path.join(out_dir, "baked.mtl"), "w") as m:
+        m.write("newmtl baked\nbsdf pbr\nmap_Kd texture_kd.png\nmap_Ks texture_ks.png\n")
+    out = {"unwrap_seconds": t_unwrap, "render_uv_seconds": t_bake, "charts": chart_count(uv_idx, len(uvs)),
+           "uv_verts": int(len(uvs)), "faces": int(faces.shape[0]), "covered": float(mask.mean()),
+           "finite": bool(torch.isfinite(kd).all() and torch.isfinite(ks).all())}
+    print(f"baked {res}x{res} kd/ks atlases -> {out_dir}: {out['faces']} faces, {out['charts']} charts, "
+          f"{out['uv_verts']} UV vertices, {100 * out['covered']:.1f} % covered; unwrap {t_unwrap:.2f} s, "
+          f"render_uv {t_bake:.2f} s", flush=True)
+    return out
+
+
+def load_baked(out_dir: str, device="cpu"):
+    """The asset :func:`bake_texture` wrote in ``out_dir``, loaded back:
+    ``mesh_textured.obj`` (``load_obj(with_attrs=True)``), ``baked.mtl``
+    (``load_mtl``) and its PNGs through ``merge_materials`` → (mesh, UVs
+    (T, 2), UV faces (F, 3), :class:`TextureMaterial`), ready for
+    ``render_mesh(..., material, ..., v_tex=UVs, t_tex_idx=UV faces)``."""
+    mesh, attrs = load_obj(os.path.join(out_dir, "mesh_textured.obj"), with_attrs=True, device=device)
+    mats = load_mtl(os.path.join(out_dir, "baked.mtl"))
+    uber, uvs, tfaces = merge_materials(mats, mesh.v_tex.cpu().numpy(), attrs["t_tex_idx"], attrs["m_face_idx"],
+                                        device=device)
+    return (mesh, torch.as_tensor(uvs, device=device), torch.as_tensor(tfaces, device=device).long(),
+            texture_material(uber))
+
+
 @torch.no_grad()
 def save_snapshot_image(rec, state, target, out_dir, it):
     """[render | reference] of the batch's first view, sRGB."""
@@ -108,7 +190,8 @@ def save_snapshot_image(rec, state, target, out_dir, it):
 
 def main(argv=None) -> dict:
     """Train; returns a summary: the first iteration, the logged metrics,
-    the ground truth's build time and the kernel launches of each phase."""
+    the ground truth's build time, the kernel launches of each phase and,
+    with ``--bake-texture``, the bake's record."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.log_interval < 1:
@@ -118,8 +201,8 @@ def main(argv=None) -> dict:
                        trainset_path=args.trainset_path, ref_mesh=args.ref_mesh,
                        n_samples=args.n_samples, use_flexicubes=args.flexicubes or None)
     problems = unported_options(flags)
-    if args.bake_texture:
-        problems.append("--bake-texture (texture bake, ROADMAP D.5)")
+    if args.bake_texture < 0:
+        parser.error("--bake-texture must be >= 0")
     if args.testset_path:
         parser.error("--testset-path is not used in training; evaluate with "
                      "python -m gshell_tpu_torch.eval_reconstruction --testset-path")
@@ -181,6 +264,8 @@ def main(argv=None) -> dict:
     summary["final_faces"] = save_mesh(rec, state, flags.out_dir, flags.iter)
     snapshot()
     save_image(os.path.join(flags.out_dir, "probe.hdr"), state.light_base.detach().cpu().numpy())
+    if args.bake_texture:
+        summary["bake"] = bake_texture(rec, state, flags.out_dir, args.bake_texture)
     print("done.", flush=True)
     return summary
 

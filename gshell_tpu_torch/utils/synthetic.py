@@ -13,6 +13,10 @@ contraction, give the same ids.
 
 :func:`open_ellipsoid_state` stands in for a fitted garment where no baked
 data set is at hand: a direct-SDF ellipsoid cut open by a tilted mSDF plane.
+
+:func:`vary_material` gives a neural material a kd that varies smoothly
+across a surface (a fresh one is nearly constant), so that a texture bake's
+round trip shows whether the atlas is the right way round.
 """
 from __future__ import annotations
 
@@ -77,3 +81,16 @@ def open_ellipsoid_state(res: int, seed: int, scale: float = 1.4) -> dict:
     deform = rng.uniform(-0.3, 0.3, size=(n ** 3, 3))
     return {"params_geo": {k: torch.from_numpy(v.astype(np.float32))
                            for k, v in (("deform", deform), ("sdf", sdf), ("msdf", msdf))}}
+
+
+def vary_material(params_mat: dict, seed: int, levels: int = 4, scale: float = 1.0) -> dict:
+    """A copy of the neural material ``params_mat`` whose ``levels`` coarsest
+    hash-grid tables are drawn uniform in ±``scale`` from ``seed`` (the init
+    draws ±1e-4); the finer levels and the MLP are kept.  The coarsest
+    levels have 16 to ~50 cells across the material's box (the default
+    grid), so kd varies over a garment without aliasing in a 1024² bake."""
+    tables = params_mat["tables"].detach().clone()
+    gen = torch.Generator().manual_seed(seed)
+    fresh = (torch.rand(tables[:levels].shape, generator=gen) * 2.0 - 1.0) * scale
+    tables[:levels] = fresh.to(tables.device)
+    return {**params_mat, "tables": tables}

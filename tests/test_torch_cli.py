@@ -153,8 +153,8 @@ def test_splat_coverage_counts_and_unchanged_occupancy():
 
 
 @pytest.mark.parametrize("setting, item", [
-    ({"use_sdf_mlp": False}, "ROADMAP D.1"), ({"spp": 2}, "ROADMAP D.5"),
-    ({"denoiser_demodulate": False}, "ROADMAP D.5"),
+    ({"use_sdf_mlp": False}, "ROADMAP D.1"), ({"use_msdf_mlp": True}, "ROADMAP D.1"),
+    ({"use_sdf_mlp": False, "use_msdf_mlp": True}, "ROADMAP D.1"),
 ])
 def test_unported_settings_exit_and_name_their_item(files, tmp_path, setting, item):
     cfg = tmp_path / "cfg.json"
@@ -165,13 +165,6 @@ def test_unported_settings_exit_and_name_their_item(files, tmp_path, setting, it
         train_gshell.main(argv)
     with pytest.raises(SystemExit, match=item):
         eval_reconstruction.main(["--state", "none.pt", "--config", str(cfg), "--device", "cpu"])
-
-
-@pytest.mark.parametrize("flag, item", [(["--flexicubes", "--bake-texture", "256"], "ROADMAP D.5"),
-                                        (["--bake-texture", "256"], "ROADMAP D.5")])
-def test_unported_flags_exit(files, flag, item):
-    with pytest.raises(SystemExit, match=item):
-        train_gshell.main(_train_argv(files, "never", *flag))
 
 
 def test_train_rejects_a_test_set(files, capsys):

@@ -2,8 +2,9 @@
 of the JAX package's numpy-only grid modules equal the originals.
 
 The copies are ``tet_tables.py``, ``tet_grid.py`` (numpy path),
-``flexicubes_tables.py``, ``cube_grid.py``, ``utils/config.py``,
-``tools/make_synthetic_gt.py`` and the diffusion dataset helpers.  The
+``flexicubes_tables.py``, ``cube_grid.py``, ``ops/uv_unwrap.py``,
+``utils/config.py``, ``tools/make_synthetic_gt.py`` and the diffusion
+dataset helpers.  The
 import check runs in a fresh interpreter with a ``sys.meta_path`` finder
 that raises on ``jax`` / ``jax.*`` / ``jaxlib`` and on ``gshell_tpu`` /
 ``gshell_tpu.*`` (``gshell_tpu_torch`` is allowed), then imports every module
@@ -260,3 +261,18 @@ def test_grid_dataset_and_splits_copies_behave_as_the_originals(tmp_path):
         assert sorted(a) == sorted(b)
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_uv_unwrap_copy_has_the_originals_source():
+    """The port's ``ops/uv_unwrap.py`` is the JAX package's, function for
+    function (only the module docstring differs); its output on meshes is
+    held equal in ``tests/test_torch_bake.py``."""
+    import inspect
+
+    from gshell_tpu.ops import uv_unwrap as orig
+    from gshell_tpu_torch.ops import uv_unwrap as ours
+
+    names = lambda m: sorted(k for k, v in vars(m).items() if inspect.isfunction(v) and v.__module__ == m.__name__)
+    assert names(ours) == names(orig) == ["_face_adjacency", "_grow_charts", "_project_chart", "unwrap"]
+    for name in names(orig):
+        assert inspect.getsource(getattr(ours, name)) == inspect.getsource(getattr(orig, name)), name

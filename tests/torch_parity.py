@@ -108,6 +108,7 @@ def view_key_for(key, rest: str):
     return {
         "tangent": k_tng, "jitter": k_jit, "nrm_shift": k_nrmjit, "jitter_off": k_texj,
         "tex": k_tex,  # tex/hashgrid/sel
+        "tex_shift": k_jit,  # a Texture2D material's smoothness tap shift
     }[top]
 
 
