@@ -80,6 +80,20 @@ Runs, in order:
      ``pbr`` (both kernels, held) and ``normal`` and ``ks``: the baked kd
      scores at least 20 dB PSNR against the neural kd, the atlas flipped in
      v at least 3 dB less; a ``{"textured": ...}`` line.
+ 12. the other geometry fields and shadow sources: (a) the skirt config with
+     a direct per-vertex SDF (16 ground-truth views, train 2 + 1 resumed,
+     eval 4 views; the snapshot holds ``sdf`` and no ``sdf_net``, the
+     eikonal is 0); (b) the skirt config with an mSDF MLP, 2 iterations,
+     the share of lattice vertices it keeps at init and after; (c) phase
+     9's FlexiCubes config with a direct SDF (8 views, 2 iterations, eval 4
+     views; both kernels held and timed at 1024², the step beside phase
+     9's); each entry point counted, both kernels' first and last launches
+     held; (d) at phase 6's working point, one step under the legacy
+     template-SDF occluder with the swept field and with the marcher, the
+     share of surface rays each blocks (strictly between 0 and 1), the
+     marcher card against CPU (nearest exactly, trilinear to
+     ``MARCH_TRILINEAR_MAX_DIFF``), builds and lookups timed; a
+     ``{"fields": ...}`` line.
 
 Prints a JSON line of per-kernel results (with ``bound_ms``, the least time
 the card could take for the same work, see ``_bound_ms``), the nvidia-smi
@@ -1003,6 +1017,40 @@ def flexi_layers(rec, state, target, reps: int = 5) -> dict:
     return out
 
 
+def hold_and_time_at_1024(rec, state, target, held: dict, label: str, smi: str) -> dict:
+    """Both kernels on the first view of ``target`` (1024²) of the trained
+    mesh of ``state``: held against their plain versions (the errors go
+    into ``held``) and timed → {kernel: its times}."""
+    import torch
+
+    from gshell_tpu_torch.ops import denoiser as dn
+    from gshell_tpu_torch.ops import math as gm
+    from gshell_tpu_torch.ops import rasterize as rz
+    from gshell_tpu_torch.render.light import update_pdf
+    from gshell_tpu_torch.render.render import render_mesh
+    from gshell_tpu_torch.utils.rng import TorchDraws
+
+    dev = state.light_base.device
+    with torch.no_grad():
+        mesh = rec.geo.get_mesh(state.params_geo)
+        v_clip = gm.xfm_points(mesh.verts, target["mvp"][0])
+        bins = rz.bin_pairs(v_clip, mesh.faces, (FLEXI_RES, FLEXI_RES))
+        held["rasterize_stage_b"] = max(held["rasterize_stage_b"], hold_stage_b(
+            f"{label} mesh at {FLEXI_RES}²", (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)))
+        sb = time_stage_b(bins, v_clip, mesh.faces, FLEXI_RES, f"the {label} mesh", smi)
+        bufs = render_mesh(TorchDraws(torch.Generator(dev).manual_seed(SEED)).child("probe"), mesh.verts,
+                           mesh.faces, mesh.v_nrm, mesh.msdf, state.params_mat, rec.mat_cfg, target["mvp"][0],
+                           target["campos"][0], update_pdf(state.light_base), rec.flags._replace(use_denoiser=False))
+        nrm = bufs["normal"][..., 0:3].contiguous()
+        zdz = bufs["z_grad"][..., 0:2].contiguous()
+        col = torch.cat([bufs["diffuse_light"][..., 0:3], bufs["specular_light"][..., 0:3]], -1).contiguous()
+        held["bilateral_accumulate"] = max(held["bilateral_accumulate"], hold_bilateral(
+            f"{label} view at {FLEXI_RES}²", (col, nrm, zdz, 2.0, 11, False),
+            dn.bilateral_accumulate(col, nrm, zdz, 2.0, 11)))
+        st = time_stencil(col, nrm, zdz, smi)
+    return {"rasterize_stage_b": sb, "bilateral_accumulate": st}
+
+
 def flexi_path(smi: str, dev) -> dict:
     """Phase 9: the skirt → ``train_gshell.main --flexicubes`` with a copy of
     ``configs/deepfashion_mc_80.json`` (2 iterations, then resumed to 3) →
@@ -1013,18 +1061,10 @@ def flexi_path(smi: str, dev) -> dict:
     mesh.  Returns the phase's record; raises on any failed check."""
     import shutil
 
-    import torch
-
     from gshell_tpu_torch import train_gshell
-    from gshell_tpu_torch.ops import denoiser as dn
-    from gshell_tpu_torch.ops import math as gm
-    from gshell_tpu_torch.ops import rasterize as rz
-    from gshell_tpu_torch.render.light import update_pdf
-    from gshell_tpu_torch.render.render import render_mesh
     from gshell_tpu_torch.train.reconstruct import load_state
     from gshell_tpu_torch.train.setup import reconstructor_from_flags
     from gshell_tpu_torch.utils.config import load_flags
-    from gshell_tpu_torch.utils.rng import TorchDraws
     from gshell_tpu_torch.utils.synthetic_gt import skirt, write_obj
 
     t_phase = time.time()
@@ -1115,24 +1155,7 @@ def flexi_path(smi: str, dev) -> dict:
           f"{layers['tick_peak_gib']:.2f} GiB; n_surf_cubes {layers['n_surf_cubes']}, n_faces "
           f"{layers['n_faces']}  [{smi}]")
 
-    with torch.no_grad():
-        mesh = rec.geo.get_mesh(state.params_geo)
-        v_clip = gm.xfm_points(mesh.verts, target["mvp"][0])
-        bins = rz.bin_pairs(v_clip, mesh.faces, (FLEXI_RES, FLEXI_RES))
-        ep.held["rasterize_stage_b"] = max(ep.held["rasterize_stage_b"], hold_stage_b(
-            f"flexi mesh at {FLEXI_RES}²", (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)))
-        sb = time_stage_b(bins, v_clip, mesh.faces, FLEXI_RES, "the FlexiCubes mesh", smi)
-        bufs = render_mesh(TorchDraws(torch.Generator(dev).manual_seed(SEED)).child("probe"), mesh.verts,
-                           mesh.faces, mesh.v_nrm, mesh.msdf, state.params_mat, rec.mat_cfg, target["mvp"][0],
-                           target["campos"][0], update_pdf(state.light_base), rec.flags._replace(use_denoiser=False))
-        nrm = bufs["normal"][..., 0:3].contiguous()
-        zdz = bufs["z_grad"][..., 0:2].contiguous()
-        col = torch.cat([bufs["diffuse_light"][..., 0:3], bufs["specular_light"][..., 0:3]], -1).contiguous()
-        ep.held["bilateral_accumulate"] = max(ep.held["bilateral_accumulate"], hold_bilateral(
-            f"flexi view at {FLEXI_RES}²", (col, nrm, zdz, 2.0, 11, False),
-            dn.bilateral_accumulate(col, nrm, zdz, 2.0, 11)))
-        st = time_stencil(col, nrm, zdz, smi)
-    rec_out["kernels_1024"] = {"rasterize_stage_b": sb, "bilateral_accumulate": st}
+    rec_out["kernels_1024"] = hold_and_time_at_1024(rec, state, target, ep.held, "flexi", smi)
 
     bad = [f"step {e['it']} {k}" for e in log for k in ("total", "img_loss", "reg_loss", "l_dev") if not _finite(e[k])]
     bad += [f"step {e['it']}: n_surf_cubes {e['n_surf_cubes']}, n_faces {e['n_faces']}, raster_dropped "
@@ -1513,6 +1536,264 @@ def textured_path(smi: str, dev) -> dict:
     return rec_out
 
 
+# Phase 12: the other geometry fields and shadow sources.  (a) and (b): phase
+# 7's skirt config at full width (512², tet grid 96, n_samples 8, batch 2,
+# mesh-splat shadows, view_batch_mode "map") with a direct per-vertex SDF,
+# then with an mSDF MLP; (c): phase 9's FlexiCubes config at full width
+# (voxel 80, 1024², n_samples 24) with a direct SDF; (d): the legacy
+# template-SDF occluder at phase 6's working point.  Only depth is cut:
+FIELDS_OUT = os.path.join(ROOT, "out", "chip_smoke", "fields")  # gitignored
+FIELDS_GT_VIEWS, FIELDS_EVAL_VIEWS = 16, 4
+FIELDS_CUTS = ["(a) 3 iterations (2, then 1 resumed), (b) and (c) 2, in place of 3000 / 5000",
+               f"(a), (b) {FIELDS_GT_VIEWS} ground-truth views in place of 64, (c) {FLEXI_GT_VIEWS}",
+               f"{FIELDS_EVAL_VIEWS} held-out eval views in place of 16",
+               "(d) one step per occluder from the working point's state"]
+SHADOW_RAYS = 1 << 18  # rays from the cut surface in uniform directions, for the occluders' blocked share
+# The trilinear march on the card may differ from the CPU's on at most this
+# share of rays (each sample is eager elementwise arithmetic on both, so the
+# expected count is 0; a fused contraction would move a sample by an ulp)
+MARCH_TRILINEAR_MAX_DIFF = 1e-4
+
+
+def _write_config(base: str, settings: dict, path: str) -> str:
+    with open(base) as f:
+        cfg = json.load(f)
+    cfg.update(settings)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _step_lines(tag: str, log: list, smi: str) -> None:
+    for e in log:
+        grad = f" sdf_net |grad| {e['sdf_net_grad_norm']:.4e}" if "sdf_net_grad_norm" in e else ""
+        active = int(e.get("n_valid_tets", e.get("n_surf_cubes", 0)))
+        print(f"{tag} step {e['it']}: total {e['total']:.6f} img {e['img_loss']:.6f} reg {e['reg_loss']:.6f} "
+              f"sdf_reg {e['sdf_reg']:.6f} eik {e['eik_loss']:.6f} active {active} n_faces {int(e['n_faces'])} "
+              f"raster_dropped {int(e['raster_dropped'])} nonfinite_grads {int(e['nonfinite_grads'])}{grad} | "
+              f"{e['s']:.3f} s/step, peak so far {e['peak_gib']:.2f} GiB  [{smi}]")
+
+
+def _field_checks(tag: str, log: list, faces: bool = True) -> list:
+    bad = [f"{tag} step {e['it']} {k}" for e in log for k in ("total", "img_loss", "reg_loss") if not _finite(e[k])]
+    bad += [f"{tag} step {e['it']}: nonfinite_grads {e['nonfinite_grads']}" for e in log if e["nonfinite_grads"]]
+    if faces:
+        bad += [f"{tag} step {e['it']}: n_faces {e['n_faces']}, raster_dropped {e['raster_dropped']}"
+                for e in log if e["n_faces"] <= 0 or e["raster_dropped"]]
+    return bad
+
+
+def legacy_sources(smi: str, dev) -> dict:
+    """Phase 12 (d): at phase 6's working point (state step 1000), one train
+    step under ``shadow_source="sdf"`` with each ``shadow_method``, each from
+    the same state, its launches counted.  The share of rays from the cut
+    surface (uniform directions) each occluder blocks must lie strictly
+    between 0 and 1 (1 is the sign fault that marks the exterior solid); the
+    marcher's visibility on the card is held against the CPU's on the same
+    rays, nearest exactly, trilinear to ``MARCH_TRILINEAR_MAX_DIFF``; the
+    occluder builds and the lookups are timed."""
+    import torch
+
+    from gshell_tpu_torch.ops import denoiser as dn
+    from gshell_tpu_torch.ops import rasterize as rz
+    from gshell_tpu_torch.ops.mesh_ops import sample_surface
+    from gshell_tpu_torch.ops.shade import apply_visibility, make_sdf_visibility
+    from gshell_tpu_torch.train.reconstruct import Reconstructor, TrainConfig
+
+    rec, state, draws, target = working_point(dev)
+    with torch.no_grad():
+        mesh = rec.geo.get_mesh(state.params_geo)
+        pts = sample_surface(draws.child("rays"), mesh.verts, mesh.faces, SHADOW_RAYS, face_mask=mesh.face_valid)
+        dirs = torch.nn.functional.normalize(draws.normal("dirs", (SHADOW_RAYS, 3)), dim=-1)
+    out, launches, bad = {}, {}, []
+    for method in ("field", "march"):
+        rec_m = Reconstructor(rec.geo, rec.mat_cfg, rec.flags,
+                              TrainConfig(batch=BATCH, use_shadows=True, shadow_source="sdf", shadow_method=method))
+        st = rec_m.make_state(state.params_geo, state.params_mat, state.light_base, step=state.step)
+        with torch.no_grad():
+            rec_m.sdf_occluder(st.params_geo)  # warm-up
+            vis, build_ms = _sync_ms(lambda: rec_m.sdf_occluder(st.params_geo))
+            blocked = float(1.0 - apply_visibility(vis, pts, dirs).mean())
+            lookup_ms = min(_sync_ms(lambda: apply_visibility(vis, pts, dirs))[1] for _ in range(5))
+        rz.stage_b_calls, dn.bilateral_launches = 0, 0
+        torch.cuda.reset_peak_memory_stats()
+        m, step_ms = _sync_ms(lambda: rec_m.train_step(st, draws.child(f"legacy_{method}"), target))
+        launches[f"legacy_{method}_train"] = {"rasterize_stage_b": rz.stage_b_calls,
+                                              "bilateral_accumulate": dn.bilateral_launches}
+        m = {k: float(v) for k, v in m.items()}
+        out[method] = {"build_ms": build_ms, "lookup_ms": lookup_ms, "rays": SHADOW_RAYS, "blocked": blocked,
+                       "step_s": step_ms / 1e3, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       **{k: m[k] for k in ("total", "img_loss", "reg_loss", "n_faces", "nonfinite_grads")}}
+        print(f"legacy source sdf / {method}: occluder build {build_ms:.2f} ms, {SHADOW_RAYS} lookups "
+              f"{lookup_ms:.2f} ms (wall between synchronizations), blocked share {blocked:.4f}; one step "
+              f"{step_ms / 1e3:.3f} s, total {m['total']:.6f} img {m['img_loss']:.6f} reg {m['reg_loss']:.6f} "
+              f"n_faces {int(m['n_faces'])} nonfinite_grads {int(m['nonfinite_grads'])}, peak "
+              f"{out[method]['peak_gib']:.2f} GiB; launches {json.dumps(launches[f'legacy_{method}_train'])}  [{smi}]")
+        bad += [f"legacy {method} {k} {m[k]}" for k in ("total", "img_loss", "reg_loss") if not _finite(m[k])]
+        if not 0.0 < blocked < 1.0:
+            bad.append(f"legacy {method}: the occluder blocks a share {blocked} of the rays")
+        if method == "march":
+            with torch.no_grad():
+                occ = -rec.geo.sdf_lattice(st.params_geo)
+                for mode in ("nearest", "trilinear"):
+                    v = make_sdf_visibility(occ, rec_m.aabb_min, rec_m.aabb_size, mode=mode)
+                    card = apply_visibility(v, pts, dirs).cpu()
+                    cpu = apply_visibility(v._replace(grid=v.grid.cpu()), pts.cpu(), dirs.cpu())
+                    n_diff = int((card != cpu).sum())
+                    ms = min(_sync_ms(lambda: apply_visibility(v, pts, dirs))[1] for _ in range(5))
+                    out[method][f"{mode}_card_vs_cpu_rays_differing"] = n_diff
+                    out[method][f"{mode}_lookup_ms"] = ms
+                    print(f"marcher {mode} (grid {v.r + 1}³, {v.n_steps} steps): card vs CPU on {SHADOW_RAYS} rays, "
+                          f"{n_diff} differ; {ms:.2f} ms on the card  [{smi}]")
+                    if n_diff > (0 if mode == "nearest" else MARCH_TRILINEAR_MAX_DIFF * SHADOW_RAYS):
+                        bad.append(f"marcher {mode}: {n_diff} rays differ between the card and the CPU")
+    out["launches"] = launches
+    if bad:
+        raise RuntimeError("phase 12 (d) (legacy shadow sources) failed: " + "; ".join(bad))
+    return out
+
+
+def fields_path(smi: str, dev, flexi: dict) -> dict:
+    """Phase 12: (a) a direct SDF on tets through ``train_gshell.main`` (2
+    iterations, resumed to 3) and ``eval_reconstruction.main``; (b) an mSDF
+    MLP on tets, 2 iterations, with the share of lattice vertices it keeps
+    (mSDF > 0) at init and after; (c) a direct SDF on FlexiCubes, 2
+    iterations and eval, both kernels held and timed at 1024², beside phase
+    9's ``flexi`` record; (d) :func:`legacy_sources`.  Every entry point
+    counted, each kernel's first and last launch held.  Returns the phase's
+    record; raises on any failed check."""
+    import shutil
+
+    import torch
+
+    from gshell_tpu_torch import train_gshell
+    from gshell_tpu_torch.train.reconstruct import load_state
+    from gshell_tpu_torch.train.setup import reconstructor_from_flags
+    from gshell_tpu_torch.utils.config import load_flags
+    from gshell_tpu_torch.utils.rng import TorchDraws
+    from gshell_tpu_torch.utils.synthetic_gt import skirt, write_obj
+
+    t_phase = time.time()
+    shutil.rmtree(FIELDS_OUT, ignore_errors=True)
+    os.makedirs(FIELDS_OUT)
+    obj = os.path.join(FIELDS_OUT, "skirt.obj")
+    write_obj(obj, *skirt())
+    print("fields cuts: " + "; ".join(FIELDS_CUTS))
+    cfgs = {"direct": _write_config(CLI_CONFIG, {"use_sdf_mlp": False, "save_interval": 2},
+                                    os.path.join(FIELDS_OUT, "skirt_direct_sdf.json")),
+            "msdf_mlp": _write_config(CLI_CONFIG, {"use_msdf_mlp": True, "save_interval": 2},
+                                      os.path.join(FIELDS_OUT, "skirt_msdf_mlp.json")),
+            "flexi_direct": _write_config(FLEXI_CONFIG, {**FLEXI_SETTINGS, "use_sdf_mlp": False, "save_interval": 2},
+                                          os.path.join(FIELDS_OUT, "deepfashion_mc_80_direct_sdf.json"))}
+    runs = {k: os.path.join(FIELDS_OUT, k) for k in cfgs}
+    common = lambda k: ["--config", cfgs[k], "--ref-mesh", obj, "--out-dir", runs[k], "--log-interval", "1",
+                        "--device", str(dev)] + (["--flexicubes"] if k == "flexi_direct" else [])
+    evaluate = lambda ep, k, label: ep.evaluate(
+        ["--state", os.path.join(runs[k], "state.pt"), "--config", cfgs[k], "--device", str(dev),
+         "--synthetic-ref-mesh", obj, "--gt-mesh", obj, "--gt-unit-size", "--n-views", str(FIELDS_EVAL_VIEWS),
+         "--out-dir", os.path.join(runs[k], "validate")], label)
+    last = f"eval view {FIELDS_EVAL_VIEWS - 1}"
+    gt_views = train_gshell.GT_VIEWS
+    try:
+        with KernelTaps() as taps:
+            ep = EntryPoints(taps)
+            train_gshell.GT_VIEWS = FIELDS_GT_VIEWS
+            a1 = ep.train(common("direct") + ["--iter", "2"], "direct SDF train (ground truth, then step 1)")
+            a2 = ep.train(common("direct") + ["--iter", "3", "--resume"], "direct SDF resumed train (step 2)")
+            a_ev = evaluate(ep, "direct", f"direct SDF eval (held-out ground truth, then {last})")
+            b1 = ep.train(common("msdf_mlp") + ["--iter", "2"], "mSDF MLP train (ground truth, then step 1)")
+            train_gshell.GT_VIEWS = FLEXI_GT_VIEWS
+            c1 = ep.train(common("flexi_direct") + ["--iter", "2"],
+                          "FlexiCubes direct SDF train (ground truth, then step 1)")
+            c_ev = evaluate(ep, "flexi_direct", f"FlexiCubes direct SDF eval (held-out ground truth, then {last})")
+    finally:
+        train_gshell.GT_VIEWS = gt_views
+    if set(ep.held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+        raise RuntimeError(f"phase 12 held only {sorted(ep.held)} against the plain versions")
+    bad = []
+
+    # (a) the direct SDF
+    a_log = a1["log"] + a2["log"]
+    _step_lines("direct SDF", a_log, smi)
+    rec_a = torch.load(os.path.join(runs["direct"], "state.pt"), map_location="cpu", weights_only=True)
+    pg = rec_a["params_geo"]
+    n_lat = (json.load(open(cfgs["direct"]))["gshell_grid"] + 1) ** 3
+    bad += _field_checks("direct SDF", a_log)
+    bad += [f"direct SDF step {e['it']}: eik_loss {e['eik_loss']}" for e in a_log if e["eik_loss"] != 0]
+    if "sdf_net" in pg or tuple(pg.get("sdf", torch.zeros(0)).shape) != (n_lat,):
+        bad.append(f"direct SDF snapshot holds {sorted(pg)}")
+    if a2["start_it"] != 2 or [e["it"] for e in a2["log"]] != [2]:
+        bad.append(f"direct SDF resumed at {a2['start_it']}")
+    if not (_finite(a_ev.get("psnr")) and _finite(a_ev.get("chamfer"))):
+        bad.append(f"direct SDF eval PSNR {a_ev.get('psnr')}, Chamfer {a_ev.get('chamfer')}")
+
+    # (b) the mSDF MLP: the share of the lattice it keeps, at init and after
+    _step_lines("mSDF MLP", b1["log"], smi)
+    rec_b = reconstructor_from_flags(load_flags(cfgs["msdf_mlp"]), dev)
+    with torch.no_grad():
+        p0 = rec_b.geo.init_params(TorchDraws(torch.Generator(dev).manual_seed(0)).child("init").child("geo"))
+        keep0 = float((rec_b.geo.fields(p0)[2] > 0).float().mean())
+        st_b, _ = load_state(rec_b, os.path.join(runs["msdf_mlp"], "state.pt"))
+        keep1 = float((rec_b.geo.fields(st_b.params_geo)[2] > 0).float().mean())
+    print(f"mSDF MLP at grid {rec_b.geo.cfg.grid_res}: share of lattice vertices kept (msdf > 0) {keep0:.4f} at init, {keep1:.4f} after "
+          f"{st_b.step} steps; n_faces per step {[int(e['n_faces']) for e in b1['log']]}  [{smi}]")
+    bad += _field_checks("mSDF MLP", b1["log"], faces=False)
+    del rec_b, st_b, p0
+
+    # (c) the direct SDF on FlexiCubes
+    _step_lines("FlexiCubes direct SDF", c1["log"], smi)
+    bad += _field_checks("FlexiCubes direct SDF", c1["log"])
+    bad += [f"FlexiCubes direct SDF step {e['it']}: eik_loss {e['eik_loss']}" for e in c1["log"] if e["eik_loss"]]
+    if not (_finite(c_ev.get("psnr")) and _finite(c_ev.get("chamfer"))):
+        bad.append(f"FlexiCubes direct SDF eval PSNR {c_ev.get('psnr')}, Chamfer {c_ev.get('chamfer')}")
+    rec_c = reconstructor_from_flags(load_flags(cfgs["flexi_direct"]), dev)
+    st_c, _ = load_state(rec_c, os.path.join(runs["flexi_direct"], "state.pt"))
+    kernels_1024 = hold_and_time_at_1024(rec_c, st_c, flexi_target(dev), ep.held, "FlexiCubes direct SDF", smi)
+    c_steps = [e["s"] for e in c1["log"]]
+    print(f"FlexiCubes direct SDF at voxel {rec_c.geo.cfg.grid_res}, {FLEXI_RES}², n_samples {rec_c.flags.n_samples}, "
+          f"batch {rec_c.tcfg.batch}: steps "
+          f"{[round(x, 3) for x in c_steps]} s, peak {c1['peak']:.2f} GiB, against phase 9's SDF MLP steps "
+          f"{[round(x, 3) for x in flexi['steps_s']]} s, peak {flexi['peak_gib']:.2f} GiB; ground truth "
+          f"{c1['gt_seconds'] / c1['gt_views']:.4f} s/view; eval {c_ev['seconds']:.2f} s, PSNR {c_ev.get('psnr')} dB, "
+          f"Chamfer-L2 {c_ev.get('chamfer')}  [{smi}]")
+    del rec_c, st_c
+    torch.cuda.empty_cache()
+
+    # (d) the legacy sources
+    legacy = legacy_sources(smi, dev)
+    launches = {"fields_direct_gt": a1["launches"]["dataset"], "fields_direct_train": a1["launches"]["train"],
+                "fields_direct_gt_resumed": a2["launches"]["dataset"],
+                "fields_direct_train_resumed": a2["launches"]["train"],
+                "fields_direct_gt_eval": a_ev["launches"]["ground_truth"],
+                "fields_direct_eval": a_ev["launches"]["synthetic"],
+                "fields_msdf_mlp_gt": b1["launches"]["dataset"], "fields_msdf_mlp_train": b1["launches"]["train"],
+                "fields_flexi_direct_gt": c1["launches"]["dataset"],
+                "fields_flexi_direct_train": c1["launches"]["train"],
+                "fields_flexi_direct_gt_eval": c_ev["launches"]["ground_truth"],
+                "fields_flexi_direct_eval": c_ev["launches"]["synthetic"], **legacy.pop("launches")}
+    print(f"fields launches by path: {json.dumps(launches)}")
+    bad += [f"{path}: {k} not launched" for path, c in launches.items() for k, v in c.items() if v <= 0]
+    summary = lambda log, run: {"steps_s": [e["s"] for e in log], "peak_gib": max(r["peak"] for r in run),
+                                "n_faces": [int(e["n_faces"]) for e in log],
+                                "nonfinite_grads": [int(e["nonfinite_grads"]) for e in log],
+                                "gt_s_per_view": run[0]["gt_seconds"] / run[0]["gt_views"]}
+    rec_out = {
+        "cuts": FIELDS_CUTS,
+        "direct_sdf": {**summary(a_log, [a1, a2]), "snapshot_keys": sorted(pg), "psnr": a_ev.get("psnr"),
+                       "chamfer": a_ev.get("chamfer"), "eval_seconds": a_ev["seconds"]},
+        "msdf_mlp": {**summary(b1["log"], [b1]), "kept_share_init": keep0, "kept_share_after": keep1},
+        "flexi_direct_sdf": {**summary(c1["log"], [c1]), "psnr": c_ev.get("psnr"), "chamfer": c_ev.get("chamfer"),
+                             "phase9_steps_s": flexi["steps_s"], "phase9_peak_gib": flexi["peak_gib"],
+                             "kernels_1024": kernels_1024},
+        "legacy_sources": legacy, "launches": launches, "held_max_abs_err": ep.held,
+    }
+    rec_out["seconds"] = time.time() - t_phase
+    print(f"fields phase: {rec_out['seconds']:.1f} s")
+    if bad:
+        raise RuntimeError("phase 12 (fields and shadow sources) failed: " + "; ".join(bad))
+    return rec_out
+
+
 def absorb_path(results: list, by_path: dict, launches: dict, held: dict) -> None:
     """Add a phase's launches per path to ``by_path`` and its held errors to
     each kernel's line (``max_abs_err``, ``launches_by_path``,
@@ -1570,7 +1851,7 @@ def main() -> int:
         return hold_stage_b(label, (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n))
 
     with torch.no_grad():
-        mesh, faces_c, fvalid_c, n_faces, v_nrm = geo.extract(state.params_geo)
+        mesh, faces_c, fvalid_c, n_faces, v_nrm, _ = geo.extract(state.params_geo)
         print(f"pretrained mesh: {int(n_faces)} faces")
         if int(n_faces) == 0:
             raise RuntimeError("the pretrained SDF has no surface (n_faces == 0)")
@@ -1683,10 +1964,16 @@ def main() -> int:
     textured = textured_path(smi, dev)
     absorb_path(results, by_path, textured["launches"], textured.pop("held_max_abs_err"))
 
+    # ---- phase 12: the other fields and shadow sources ---------------------------
+    torch.cuda.empty_cache()
+    fields = fields_path(smi, dev, flexi)
+    absorb_path(results, by_path, fields["launches"], fields.pop("held_max_abs_err"))
+
     print(json.dumps({"diffusion": diffusion}))
     print(json.dumps({"flexicubes": flexi}))
     print(json.dumps({"second_layer": second}))
     print(json.dumps({"textured": textured}))
+    print(json.dumps({"fields": fields}))
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

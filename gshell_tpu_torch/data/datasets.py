@@ -4,6 +4,9 @@
 * :class:`DatasetDeepFashion` / :class:`DatasetDeepFashionTestset` — IDR-style
   ``cameras_sphere.npz`` with PNG views (and a mask directory);
 * :class:`DatasetNeRF` — NeRF-synthetic ``transforms_*.json``;
+* :class:`DatasetNeRFColmap` / :class:`DatasetLLFF` — Colmap-style NeRF
+  captures with mask images, and LLFF ``poses_bounds.npy`` captures (library
+  classes: no entry point builds them, as in the JAX package);
 * :class:`DatasetMesh` — ground truth rendered from a reference mesh through
   the port's own renderer.
 
@@ -210,6 +213,82 @@ class DatasetDeepFashionTestset(DatasetDeepFashion):
             m = torch.as_tensor(np.sign(resize_image(m, train_res)), device=self.device)
             self.imgs[i, ..., 3:] = m
             self.imgs[i, ..., 0:3] *= m
+
+
+class DatasetNeRFColmap(PosedImageDataset):
+    """Colmap-style NeRF captures: a ``transforms.json`` whose frames each
+    carry ``camera_angle_x`` and an image path; the mask, where the file
+    exists, at the image path with ``/image/`` → ``/mask/`` and ``.jpg`` →
+    ``.png``; mv = inv(transform) · rotate_x(−π/2).  Frames are PNG
+    (``utils/image.py`` decodes PNG and .hdr only)."""
+
+    def __init__(self, cfg_path: str, train_res=(512, 512), cam_near_far=(0.1, 1000.0),
+                 examples: Optional[int] = None, device="cpu"):
+        super().__init__(device)
+        base_dir = os.path.dirname(cfg_path)
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        frames = cfg["frames"][:examples] if examples else cfg["frames"]
+        aspect = train_res[1] / train_res[0]
+        rx = gmath.rotate_x(-np.pi / 2).numpy()
+        mvps, camposs, imgs = [], [], []
+        for frame in frames:
+            fovy = 2.0 * np.arctan(np.tan(frame["camera_angle_x"] / 2.0) / aspect)
+            proj = gmath.perspective(fovy, aspect, *cam_near_far).numpy()
+            img_path = os.path.join(base_dir, frame["file_path"])
+            img = _load_img(img_path)
+            mask_path = img_path.replace("/image/", "/mask/").replace(".jpg", ".png")
+            if os.path.exists(mask_path):
+                img = np.concatenate([img[..., :3], _load_img(mask_path)[..., :1]], -1)
+            imgs.append(_premultiplied(resize_image(img, train_res)))
+            mv = np.linalg.inv(np.asarray(frame["transform_matrix"], np.float32)) @ rx
+            camposs.append(np.linalg.inv(mv)[:3, 3])
+            mvps.append(proj @ mv)
+        self._store(mvps, camposs, imgs, train_res)
+
+
+class DatasetLLFF(PosedImageDataset):
+    """LLFF light-field captures: ``poses_bounds.npy``, ``images/`` and
+    ``masks/`` (sorted, paired by order); the LLFF → NeRF axis swizzle, fovy
+    from each pose's focal length, and the camera centres moved so that the
+    point nearest every viewing ray is the origin (:func:`_lines_focal`)."""
+
+    def __init__(self, base_dir: str, train_res=(512, 512), cam_near_far=(0.1, 1000.0), device="cpu"):
+        super().__init__(device)
+
+        def listing(sub):
+            d = os.path.join(base_dir, sub)
+            names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+            return [os.path.join(d, f) for f in names if f.lower().endswith((".png", ".jpg", ".jpeg"))]
+
+        img_files, mask_files = listing("images"), listing("masks")
+        pb = np.load(os.path.join(base_dir, "poses_bounds.npy"))
+        poses = pb[:, :-2].reshape([-1, 3, 5]).transpose([1, 2, 0])
+        poses = np.concatenate([poses[:, 1:2], -poses[:, 0:1], poses[:, 2:]], 1)
+        poses = np.moveaxis(poses, -1, 0).astype(np.float32)  # (N, 3, 5)
+        lrow = np.tile(np.asarray([0, 0, 0, 1], np.float32), (poses.shape[0], 1, 1))
+        imvs = np.concatenate([poses[:, :, 0:4], lrow], axis=1)  # camera to world
+        fovy = 2.0 * np.arctan(0.5 * poses[:, 0, 4] / poses[:, 2, 4])
+        imvs[:, :3, 3] -= _lines_focal(imvs[:, :3, 3], -imvs[:, :3, 2])[None]
+        aspect = train_res[1] / train_res[0]
+        mvps, camposs, imgs = [], [], []
+        for i, f in enumerate(img_files):
+            proj = gmath.perspective(float(fovy[i]), aspect, *cam_near_far).numpy()
+            mv = np.linalg.inv(imvs[i])
+            img = _load_img(f)
+            if i < len(mask_files):
+                img = np.concatenate([img[..., :3], _load_img(mask_files[i])[..., :1]], -1)
+            imgs.append(_premultiplied(resize_image(img, train_res)))
+            mvps.append(proj @ mv)
+            camposs.append(np.linalg.inv(mv)[:3, 3])
+        self._store(mvps, camposs, imgs, train_res)
+
+
+def _lines_focal(o: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """The least-squares point nearest the lines o + t·d."""
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    m = np.eye(3)[None] - d[:, :, None] * d[:, None, :]
+    return np.linalg.solve(m.sum(0), (m @ o[:, :, None]).sum(0)[:, 0])
 
 
 class DatasetMesh(PosedImageDataset):

@@ -14,7 +14,9 @@ trained against shadowed ground truth (``gt_shadows``), the fitted model is
 rendered under the shadow field of its own cut-mesh splat, as in training.
 ``metrics.txt`` (and with ``--dump-images`` the ``val_*.png`` triptychs) go
 to ``--out-dir``.  A FlexiCubes state (one with per-cube weights) is
-evaluated on its FlexiCubes mesh, whatever the config's ``use_flexicubes``.
+evaluated on its FlexiCubes mesh, whatever the config's ``use_flexicubes``,
+and a state's fields (a direct ``sdf`` or an ``sdf_net``, a direct
+``msdf`` or an ``msdf_net``) are read as the state holds them.
 Runs on ``--device cuda`` unless given ``--device cpu``.
 """
 from __future__ import annotations
@@ -31,7 +33,7 @@ from .render.mesh import load_obj, unit_size
 from .render.render import render_mesh
 from .train.reconstruct import TrainConfig, load_state
 from .train.setup import (add_bool, gt_light_material, kernel_launches, launches_since,
-                          reconstructor_from_flags, resolve_device, unported_options)
+                          reconstructor_from_flags, resolve_device)
 from .train.validate import chamfer_distance, validate
 from .utils.config import load_flags
 from .utils.rng import TorchDraws
@@ -72,12 +74,15 @@ def main(argv=None) -> dict:
         p.error(f"--n-views must be >= 1 (got {args.n_views})")
     device = resolve_device(args.device, PROG)
     flags = load_flags(args.config)
-    problems = unported_options(flags)
-    if problems:
-        raise SystemExit(f"{PROG}: not yet ported: " + "; ".join(problems))
-    # the state says which geometry it fits: FlexiCubes keeps per-cube weights
+    # the state says which geometry and fields it fits: FlexiCubes keeps
+    # per-cube weights, an MLP field its ``*_net`` (FlexiCubes keeps a direct
+    # mSDF under use_msdf_mlp, so its flag stays the config's)
     record = torch.load(args.state, map_location="cpu", weights_only=True, mmap=True)
-    flags.use_flexicubes = "cube_weights" in record["params_geo"]
+    pg = record["params_geo"]
+    flags.use_flexicubes = "cube_weights" in pg
+    flags.use_sdf_mlp = "sdf_net" in pg
+    if not flags.use_flexicubes:
+        flags.use_msdf_mlp = "msdf_net" in pg
     rec = reconstructor_from_flags(flags, device, n_samples=args.spp)
     # every pixel shaded; spp 1 and denoising before modulation whatever the
     # config says, as JAX's eval builds its flags

@@ -4,9 +4,11 @@
 The interface of :class:`~gshell_tpu_torch.geometry.geometry.GShellGeometry`
 over a voxel grid: per-cube FlexiCubes weights (C, 21) = β (12) ++ α (8) ++
 γ (1), zero at init; a deformation of at most a quarter of a voxel; the SDF
-MLP evaluated with gradient on the whole lattice; and the L_dev regularizer
-weighted ×0.25 in the loss.  The SDF sign-consistency BCE runs over every
-lattice edge.
+(an MLP, or a direct per-vertex field) with gradient on the whole lattice;
+a direct mSDF, whatever ``use_msdf_mlp`` says (the JAX geometry keeps a
+direct one; the trainer then steps it at lr_pos·1e-2); and the L_dev
+regularizer weighted ×0.25 in the loss.  The SDF sign-consistency BCE runs
+over every lattice edge.
 
 The tick shadows with the cut mesh it extracted, as the tets tick does (a
 surface splat and the swept shadow field); the JAX tick takes whatever
@@ -38,14 +40,12 @@ class FlexiGeometryConfig(GeometryConfig):
 
 class GShellFlexiGeometry:
     """Voxel grid + extractor + config; parameters ``{"deform": (N, 3),
-    "cube_weights": (C, 21), "msdf": (N,), "sdf_net": {"w": [...], "b": [...]}}``.
+    "cube_weights": (C, 21), "msdf": (N,), "sdf_net": {"w": [...], "b": [...]}}``
+    (``"sdf"`` (N,) in place of ``"sdf_net"`` for a direct SDF).
     ``max_tets`` / ``max_verts`` of the config, when set, are the surface
     cube and crossing edge capacities, as in the JAX package."""
 
     def __init__(self, cfg: FlexiGeometryConfig, device):
-        if not cfg.use_sdf_mlp or cfg.use_msdf_mlp:
-            raise ValueError("the port's FlexiCubes geometry trains an SDF MLP and a direct mSDF only "
-                             "(ROADMAP D.1)")
         check_view_batch_mode(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -64,16 +64,23 @@ class GShellFlexiGeometry:
     # ---------------- parameters ----------------
     def init_params(self, draws) -> dict:
         n, c = self.grid.n_verts, self.grid.n_cubes
-        return {
+        params = {
             "deform": torch.zeros((n, 3), device=self.device),
             "cube_weights": torch.zeros((c, 21), device=self.device),
             "msdf": torch.clamp(draws.uniform("msdf", (n,)) - 0.01, -1.0, 1.0).to(self.device),
-            "sdf_net": init_mlp(draws.child("sdf_net"), self.cfg.mlp, self.device),
         }
+        if self.cfg.use_sdf_mlp:
+            params["sdf_net"] = init_mlp(draws.child("sdf_net"), self.cfg.mlp, self.device)
+        else:  # the sphere of radius 0.5, inside < 0
+            params["sdf"] = torch.linalg.norm(self.verts / self.boxscale, dim=-1) - 0.5
+        return params
 
     def pretrain_sdf(self, params: dict, draws=None, steps: int = 1000, lr: float = 1e-3) -> dict:
         """Fit the SDF MLP to a sphere of radius ``sphere_init_norm`` (inside <
-        0) on every lattice vertex, full batch, with Adam; takes no draws."""
+        0) on every lattice vertex, full batch, with Adam; takes no draws.  A
+        direct SDF starts as that sphere and is returned as it is."""
+        if not self.cfg.use_sdf_mlp:
+            return params
         net = {k: [t.detach().clone().requires_grad_(True) for t in v] for k, v in params["sdf_net"].items()}
         opt = torch.optim.Adam(net["w"] + net["b"], lr=lr, eps=1e-8)
         target = torch.linalg.norm(self.verts / self.boxscale, dim=-1, keepdim=True) - self.cfg.sphere_init_norm
@@ -88,7 +95,8 @@ class GShellFlexiGeometry:
     def fields(self, params: dict):
         """(v_deformed, sdf, msdf) on the whole lattice, with gradients."""
         v_def = self.verts + self.max_displacement * params["deform"]
-        return v_def, apply_mlp(params["sdf_net"], v_def, self.cfg.mlp)[:, 0], params["msdf"]
+        sdf = params["sdf"] if "sdf" in params else apply_mlp(params["sdf_net"], v_def, self.cfg.mlp)[:, 0]
+        return v_def, sdf, params["msdf"]
 
     def extract(self, params: dict, training: bool = True):
         """→ (FlexiMesh, sdf on the lattice, faces compacted to the front of
@@ -125,17 +133,18 @@ class GShellFlexiGeometry:
     def tick(self, draws, params: dict, mat_params: dict, mat_cfg, light, target: dict,
              iteration: int, flags: RenderFlags, image_loss_fn: Callable,
              use_shadows: bool = True, shadow_scale: float = 1.0,
-             denoiser_sigma: float = 2.0, shadow_ko: int = 16):
+             denoiser_sigma: float = 2.0, shadow_ko: int = 16, visibility=None):
         """One training evaluation → (img_loss, depth_loss, reg_loss, aux): the
         tets tick's terms, the SDF BCE over every lattice edge, and
         ``l_dev_weight``·L_dev.  Views render one after another, each
         recomputed in the backward under ``view_batch_mode`` "map_remat", as
-        in the tets tick (JAX's FlexiCubes tick always recomputes)."""
+        in the tets tick (JAX's FlexiCubes tick always recomputes).
+        ``visibility``, where given, replaces the cut mesh's splat."""
         mesh, sdf, faces_c, fvalid_c, n_faces = self.extract(params)
         img_loss, depth_loss, terms, aux = render_and_score(
             self, draws, params, mesh, faces_c, fvalid_c, mesh.v_nrm, mat_params, mat_cfg, light, target,
             iteration, flags, image_loss_fn, use_shadows, shadow_scale, denoiser_sigma, shadow_ko,
-            remat=self.cfg.view_batch_mode == "map_remat")
+            remat=self.cfg.view_batch_mode == "map_remat", visibility=visibility)
         sdf_reg = reg.sdf_reg_loss(sdf, self.grid_edges) * sdf_weight(self.cfg, iteration)
         reg_loss = (sdf_reg + terms["eik_loss"] + terms["msdf_reg"] + terms["shading_reg"]
                     + self.cfg.l_dev_weight * mesh.l_dev)

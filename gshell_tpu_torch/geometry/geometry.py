@@ -1,13 +1,17 @@
 """Trainable G-Shell geometry: parameters, extraction and the training loss
-(PyTorch twin of ``gshell_tpu/geometry/geometry.py``, MLP-SDF path with
-lazy field gradients).  ``init_params`` and ``fields`` also serve a direct
-(per-vertex) SDF and an mSDF MLP, which only grid baking reads; training
-them is not ported.
+(PyTorch twin of ``gshell_tpu/geometry/geometry.py``).  The SDF and the
+mSDF are each a direct per-vertex field or an MLP.  With an MLP and
+``lazy_field_grad`` the lattice field is evaluated without gradient (the
+extractor reads only its signs) and the MLP again at the crossing-edge
+endpoints, where the values carry gradients; otherwise the fields carry
+gradients on the whole lattice.
 
 ``tick`` assembles the reference loss: image + mask loss, mSDF image hinges,
 the second layer's image loss and the depth terms when the config asks for
-them, eikonal on surface samples, mSDF open/close regularizers, the annealed
-SDF sign-consistency BCE, and the shading / material regularizers."""
+them, eikonal on surface samples (SDF MLP only), mSDF open/close
+regularizers, the annealed SDF sign-consistency BCE (over the crossing-edge
+slots on the lazy path, over every lattice edge otherwise), and the
+shading / material regularizers."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,6 +62,9 @@ class GeometryConfig:
     # "vmap" is the same loop), in both ticks (JAX's FlexiCubes tick always
     # recomputes)
     view_batch_mode: str = "map_remat"
+    # MLP fields: evaluate the lattice field without gradient and the MLP
+    # again at the crossing-edge endpoints (JAX's default)
+    lazy_field_grad: bool = True
     capacity_safety: float = 1.0
     max_tets: Optional[int] = None
     max_verts: Optional[int] = None
@@ -115,7 +122,10 @@ class GShellGeometry:
 
     def pretrain_sdf(self, params: dict, draws, steps: int = 1000, lr: float = 1e-3) -> dict:
         """Fit the SDF MLP to a sphere of radius ``sphere_init_norm`` on random
-        points in the lattice box (Adam, as the reference's sphere init)."""
+        points in the lattice box (Adam, as the reference's sphere init); a
+        direct SDF starts as that sphere and is returned as it is."""
+        if not self.cfg.use_sdf_mlp:
+            return params
         cfg = self.cfg
         net = {k: [t.detach().clone().requires_grad_(True) for t in v]
                for k, v in params["sdf_net"].items()}
@@ -149,21 +159,36 @@ class GShellGeometry:
         return torch.cat([apply_mlp(net, pts[i:i + self._FIELD_CHUNK], self.cfg.mlp)[:, 0]
                           for i in range(0, pts.shape[0], self._FIELD_CHUNK)])
 
-    @torch.no_grad()
     def fields(self, params: dict):
-        """(v_deformed, sdf, msdf) without gradients, for every combination of
-        a direct or an MLP SDF and mSDF."""
+        """(v_deformed, sdf, msdf) on the whole lattice, with gradients, for
+        every combination of a direct or an MLP SDF and mSDF."""
         v_def = self.lattice_verts() + self.max_displacement * params["deform"]
         return v_def, self._field(params, "sdf", v_def), self._field(params, "msdf", v_def)
 
     def fields_lazy(self, params: dict):
-        """(v_def, sdf without gradient, msdf, sdf_fn): the dense SDF gives
-        only signs; ``sdf_fn`` re-evaluates the MLP where values matter."""
+        """(v_def, sdf, msdf, sdf_fn, msdf_fn): an MLP field on the lattice
+        without gradient (the extractor reads only its signs) and the MLP as
+        ``*_fn``, which the extractor calls where values matter; a direct
+        field as it is, its ``*_fn`` None."""
         v_def = self.lattice_verts() + self.max_displacement * params["deform"]
-        net, mcfg = params["sdf_net"], self.cfg.mlp
-        with torch.no_grad():
-            sdf = self._field(params, "sdf", v_def.detach())
-        return v_def, sdf, params["msdf"], lambda p: apply_mlp(net, p, mcfg)[:, 0]
+        out, fns = [], []
+        for name in ("sdf", "msdf"):
+            if name in params:
+                out.append(params[name])
+                fns.append(None)
+                continue
+            with torch.no_grad():
+                out.append(self._field(params, name, v_def.detach()))
+            net = params[f"{name}_net"]
+            fns.append(lambda p, net=net: apply_mlp(net, p, self.cfg.mlp)[:, 0])
+        return v_def, out[0], out[1], fns[0], fns[1]
+
+    @torch.no_grad()
+    def sdf_lattice(self, params: dict):
+        """The SDF as an (R+1)³ volume, inside negative (the sphere init's
+        sign): a shadow occluder is its negation, occupied where > 0."""
+        r = self.cfg.grid_res + 1
+        return self.fields(params)[1].reshape(r, r, r)
 
     def splat_occupancy(self, draws, verts, faces, face_valid, res: int = 65,
                         n_samples: int = 1 << 17):
@@ -180,39 +205,53 @@ class GShellGeometry:
     def clamp_params(self, params: dict) -> None:
         """Post-step clamps, in place."""
         params["deform"].clamp_(-1.0, 1.0)
-        params["msdf"].clamp_(-2.0, 2.0)
+        if "msdf" in params:
+            params["msdf"].clamp_(-2.0, 2.0)
 
     def extract(self, params: dict):
         """Cut mesh with its faces compacted to the front of a max_tets
-        buffer → (mesh, faces, face_valid, n_faces, smooth vertex normals)."""
-        v_def, sdf, msdf, sdf_fn = self.fields_lazy(params)
-        mesh = self.extractor(v_def, sdf, msdf, sdf_fn=sdf_fn)
+        buffer → (mesh, faces, face_valid, n_faces, smooth vertex normals,
+        the lattice SDF the extractor read: without gradient on the lazy
+        path, with it otherwise)."""
+        cfg = self.cfg
+        if cfg.lazy_field_grad and (cfg.use_sdf_mlp or cfg.use_msdf_mlp):
+            v_def, sdf, msdf, sdf_fn, msdf_fn = self.fields_lazy(params)
+        else:
+            (v_def, sdf, msdf), sdf_fn, msdf_fn = self.fields(params), None, None
+        mesh = self.extractor(v_def, sdf, msdf, sdf_fn=sdf_fn, msdf_fn=msdf_fn)
         faces_c, fvalid_c, n_faces = compact_faces(mesh.faces, mesh.face_valid, cap=self.extractor.max_tets)
-        return mesh, faces_c, fvalid_c, n_faces, auto_normals(mesh.verts, faces_c, fvalid_c)
+        return mesh, faces_c, fvalid_c, n_faces, auto_normals(mesh.verts, faces_c, fvalid_c), sdf
 
     @torch.no_grad()
     def get_mesh(self, params: dict) -> CutMesh:
         """The cut mesh without gradients, faces compacted to the front."""
-        mesh, faces_c, fvalid_c, n_faces, v_nrm = self.extract(params)
+        mesh, faces_c, fvalid_c, n_faces, v_nrm, _ = self.extract(params)
         return CutMesh(mesh.verts, faces_c, fvalid_c, n_faces, v_nrm, mesh.msdf)
 
     # ---------------- losses ----------------
     def tick(self, draws, params: dict, mat_params: dict, mat_cfg, light, target: dict,
              iteration: int, flags: RenderFlags, image_loss_fn: Callable,
              use_shadows: bool = True, shadow_scale: float = 1.0,
-             denoiser_sigma: float = 2.0, shadow_ko: int = 16):
+             denoiser_sigma: float = 2.0, shadow_ko: int = 16, visibility=None):
         """One training evaluation → (img_loss, depth_loss, reg_loss, aux).
         ``target``: 'mvp' (B,4,4), 'campos' (B,3), 'img' (B,H,W,4),
         'background' (B,H,W,3); 'invdepth' (B,H,W,1), 'img_second'
         (B,H,W,4) and 'invdepth_second' (B,H,W,1) for the supervision the
         config turns on.  Views render one after another, each recomputed
-        in the backward under ``view_batch_mode`` "map_remat"."""
-        mesh, faces_c, fvalid_c, n_faces, v_nrm = self.extract(params)
+        in the backward under ``view_batch_mode`` "map_remat".  Shadows
+        come from ``visibility`` where the caller built an occluder (the
+        template-SDF sources), else from the cut mesh's splat."""
+        mesh, faces_c, fvalid_c, n_faces, v_nrm, sdf = self.extract(params)
         img_loss, depth_loss, terms, aux = render_and_score(
             self, draws, params, mesh, faces_c, fvalid_c, v_nrm, mat_params, mat_cfg, light, target,
             iteration, flags, image_loss_fn, use_shadows, shadow_scale, denoiser_sigma, shadow_ko,
-            remat=self.cfg.view_batch_mode == "map_remat")
-        sdf_reg = reg.sdf_reg_loss_edges(mesh.edge_sdf) * sdf_weight(self.cfg, iteration)
+            remat=self.cfg.view_batch_mode == "map_remat", visibility=visibility)
+        # on the lazy path the lattice SDF carries no gradient: the BCE reads
+        # the crossing-edge slots the extractor re-evaluated (the same edges)
+        r1 = self.cfg.grid_res + 1
+        lazy_sdf = self.cfg.use_sdf_mlp and self.cfg.lazy_field_grad
+        sdf_reg = (reg.sdf_reg_loss_edges(mesh.edge_sdf) if lazy_sdf
+                   else reg.sdf_reg_loss_lattice(sdf.reshape(r1, r1, r1))) * sdf_weight(self.cfg, iteration)
         reg_loss = sdf_reg + terms["eik_loss"] + terms["msdf_reg"] + terms["shading_reg"]
         aux = {
             "n_valid_tets": mesh.n_valid_tets,
@@ -270,21 +309,21 @@ def checkpoint_draws(fn, draws):
 def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, mat_params: dict, mat_cfg,
                      light, target: dict, iteration: int, flags: RenderFlags, image_loss_fn: Callable,
                      use_shadows: bool, shadow_scale: float, denoiser_sigma: float, shadow_ko: int,
-                     remat: bool = False):
+                     remat: bool = False, visibility=None):
     """What the tets and the FlexiCubes ticks share: the shadow field of the
     cut mesh's splat (draws ``splat``), every view's render (``view{b}``;
     its second layer, when the config's ``use_img_2nd_layer`` or
     ``use_depth_2nd_layer`` asks for it, ``view{b}/second``), under
     :func:`checkpoint_draws` when ``remat`` and there is more than one view,
     the image, mask, mSDF-image, second-layer image and depth losses, the
-    eikonal on surface samples (``eik``), the mSDF open / close
+    eikonal on surface samples (``eik``; with an SDF MLP), the mSDF open / close
     regularizers and the shading ones.  ``mesh`` has ``verts``, ``msdf``,
     ``msdf_boundary`` and ``n_verts_watertight``.  → (img_loss, depth_loss,
     {eik_loss, msdf_reg, shading_reg}, {raster_dropped, px_dropped, splat
-    coverage})."""
+    coverage}).  A ``visibility`` the caller built takes the splat's place."""
     cfg, dev = geo.cfg, geo.device
-    visibility, coverage = None, {}
-    if use_shadows:
+    coverage = {}
+    if use_shadows and visibility is None:
         occ, amin, asz, coverage = geo.splat_occupancy(draws.child("splat"), mesh.verts, faces_c, fvalid_c)
         visibility = make_shadow_field(occ, amin, asz, ko=shadow_ko)
     second = cfg.use_img_2nd_layer or cfg.use_depth_2nd_layer
@@ -321,7 +360,7 @@ def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, m
     img_loss = img_loss + img_extra
 
     eik_loss = torch.zeros((), device=dev)
-    if cfg.use_eikonal:
+    if cfg.use_sdf_mlp and cfg.use_eikonal:
         pts = sample_surface(draws.child("eik"), mesh.verts.detach(), faces_c,
                              cfg.n_eikonal_samples, face_mask=fvalid_c)
         if cfg.eikonal_scale is None:

@@ -13,12 +13,14 @@ cut coefficients.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops.compact import nonzero_compact
+from ..ops.math import build_orthonormal_basis
+from ..ops.mesh_ops import auto_normals
 from . import tet_tables as tt
 from .tet_grid import EDGE_OFFSETS, TetGrid, _PATHS, _edge_class_bases, default_capacities
 
@@ -50,6 +52,7 @@ class GShellMesh(NamedTuple):
     n_valid_tets: torch.Tensor
     n_crossing_edges: torch.Tensor
     edge_sdf: torch.Tensor  # (V, 2) gradient-carrying SDF at crossing-edge endpoints
+    v_tng: Optional[torch.Tensor] = None  # (V + 1 + 4·MT, 3) with compute_tangents
 
 
 def _safe_inv_denominator(d, valid):
@@ -212,11 +215,14 @@ class GShellTets:
         off = torch.abs(pb - pa)
         return torch.minimum(pa, pb), self._key_to_cls[off[..., 0] * 4 + off[..., 1] * 2 + off[..., 2]]
 
-    def __call__(self, pos, sdf, msdf, sdf_fn=None) -> GShellMesh:
+    def __call__(self, pos, sdf, msdf, sdf_fn=None, msdf_fn=None, compute_tangents: bool = False) -> GShellMesh:
         """Extract the open-surface mesh.  ``pos`` (N, 3) deformed lattice,
-        ``sdf``/``msdf`` (N,).  With ``sdf_fn`` (lazy gradients) ``sdf`` is
-        read only for signs and the gradient-carrying SDF values are
-        re-evaluated at the crossing-edge endpoints."""
+        ``sdf``/``msdf`` (N,).  With ``sdf_fn`` / ``msdf_fn`` (lazy
+        gradients, ``(rows, 3) → (rows,)``) the dense field is read only for
+        signs and the gradient-carrying values are re-evaluated at the
+        crossing-edge endpoints.  ``compute_tangents`` adds ``v_tng``: the
+        orthonormal-basis tangent of each template vertex's smooth normal
+        over the template faces, carried through the cut like positions."""
         V, MT = self.max_verts, self.max_tets
         dev = self.device
         res = self.grid.res
@@ -247,7 +253,12 @@ class GShellTets:
         wa = -sb * denom_inv
         wb = sa * denom_inv
         verts = torch.where(slot_valid[:, None], pa * wa[:, None] + pb * wb[:, None], 0.0)
-        ma, mb = msdf_p[ev0], msdf_p[ev1]
+        if msdf_fn is not None:
+            mab = msdf_fn(torch.cat([pa, pb], dim=0))
+            ma = torch.where(slot_valid, mab[:V], -1.0)
+            mb = torch.where(slot_valid, mab[V:], -1.0)
+        else:
+            ma, mb = msdf_p[ev0], msdf_p[ev1]
         msdf_vert = torch.where(slot_valid, ma * wa + mb * wb, 0.0)
         msdf_vert_sg = torch.where(slot_valid, ma * wa.detach() + mb * wb.detach(), 0.0)
 
@@ -263,6 +274,13 @@ class GShellTets:
         num_tri = self.num_tri_table[tetindex]
         te_lo, te_cls = self.tet_edge_lo_cls(corner_xyz)
         idx6 = vert_slot_of_edges(te_lo, te_cls, tet_valid[:, None])  # (MT, 6)
+        v_tng_t = None
+        if compute_tangents:
+            f01 = torch.gather(idx6, 1, torch.clamp(self.triangle_table[tetindex], 0, 5))
+            faces_wt = torch.stack([torch.where((num_tri >= 1)[:, None], f01[:, :3], V),
+                                    torch.where((num_tri == 2)[:, None], f01[:, 3:6], V)], dim=1).reshape(-1, 3)
+            face_wt_valid = torch.stack([num_tri >= 1, num_tri == 2], dim=1).reshape(-1)
+            v_tng_t = build_orthonormal_basis(auto_normals(verts_buf, faces_wt, face_wt_valid))[0]
 
         # ---- mSDF cutting -----------------------------------------------------
         me = torch.clamp(self.mesh_edge_table[tetindex], 0, 5)
@@ -286,6 +304,9 @@ class GShellTets:
         vu = cattr[..., 0:3]
         b_verts = vu * bu[..., None] + vu[:, nxt] * bw[..., None]
         b_msdf = mu_sg * bu.detach() + mw_sg * bw.detach()
+        if compute_tangents:
+            tu = v_tng_t[corners]
+            b_tng = tu * bu[..., None] + tu[:, nxt] * bw[..., None]
 
         b_gid = (V + 1) + self._arange(MT)[:, None] * 4 + self._arange(4)[None, :]
         idx_tri_map = torch.cat([corners[:, :3], b_gid[:, :3]], dim=1)
@@ -309,6 +330,9 @@ class GShellTets:
         b_mask = tet_valid[:, None] & cut_ok
         b_verts = torch.where(b_mask[..., None], b_verts, 0.0).reshape(-1, 3)
         b_msdf = torch.where(b_mask, b_msdf, 0.0).reshape(-1)
+        v_tng = None
+        if compute_tangents:
+            v_tng = torch.cat([v_tng_t, torch.where(b_mask[..., None], b_tng, 0.0).reshape(-1, 3)], dim=0)
         return GShellMesh(
             verts=torch.cat([verts_buf, b_verts], dim=0),
             faces=faces_aug,
@@ -319,4 +343,5 @@ class GShellTets:
             n_valid_tets=n_valid,
             n_crossing_edges=n_cross,
             edge_sdf=torch.stack([sa, sb], dim=-1),
+            v_tng=v_tng,
         )

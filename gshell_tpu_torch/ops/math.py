@@ -48,6 +48,16 @@ def luminance(c):
     return torch.sum(c * w, dim=-1, keepdim=True)
 
 
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
+def cross(a, b):
+    """3-vector cross product over the last axis, the operands broadcast."""
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b)
+
+
 def build_orthonormal_basis(n):
     """Branchless ONB (Frisvad) from a normalized normal; ``t × b = n``."""
     sign = torch.where(n[..., 2:3] >= 0.0, 1.0, -1.0)
@@ -173,6 +183,14 @@ def latlong_to_cubemap(latlong, res: int):
     return latlong[py, px]
 
 
+def reinhard(f):
+    return f / (1.0 + f)
+
+
+def psnr_to_mse(psnr):
+    return torch.pow(10.0, -psnr / 10.0)
+
+
 def mse_to_psnr(mse):
     """PSNR in dB of a mean squared error on [0, 1] images."""
     return -10.0 * torch.log10(torch.clamp(torch.as_tensor(mse), min=1e-10))
@@ -222,6 +240,18 @@ def lookat(eye, at, up):
     return m
 
 
+def translate(x: float, y: float, z: float, device=None):
+    m = torch.eye(4, dtype=torch.float32, device=device)
+    m[:3, 3] = torch.tensor([x, y, z], dtype=torch.float32, device=device)
+    return m
+
+
+def rotate_y(a: float, device=None):
+    s, c = math.sin(a), math.cos(a)
+    return torch.tensor([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0], [0, 0, 0, 1]],
+                        dtype=torch.float32, device=device)
+
+
 def rotate_x(a: float, device=None):
     s, c = math.sin(a), math.cos(a)
     return torch.tensor([[1, 0, 0, 0], [0, c, -s, 0], [0, s, c, 0], [0, 0, 0, 1]],
@@ -232,6 +262,11 @@ def xfm_points(points, matrix):
     """(N, 3) points × (4, 4) matrix → homogeneous (N, 4)."""
     pts_h = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
     return torch.einsum("...ij,...nj->...ni", matrix, pts_h)
+
+
+def xfm_vectors(vectors, matrix):
+    """(..., N, 3) directions (w = 0) × (..., 4, 4) matrices → (..., N, 3)."""
+    return torch.einsum("...ij,...nj->...ni", matrix[..., :3, :3], vectors)
 
 
 class _ScaleGrad(torch.autograd.Function):

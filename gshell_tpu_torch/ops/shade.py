@@ -5,9 +5,11 @@ Per pixel, n² stratified sample pairs of light importance sampling (from a
 per-step rotation of a shared pool of inverted light samples) and BSDF
 importance sampling (cosine or GGX-VNDF), combined with the balance
 heuristic; every sample is shadow-tested against a directional shadow field
-swept from the occupancy of the cut mesh.  :class:`_MCAccumulate` keeps the
-sample loop's memory O(pixels): its backward re-walks the samples and reuses
-the visibilities saved by the forward.
+swept from an occupancy lattice (the cut mesh's splat, or the negated
+template SDF), or by marching the template SDF along the ray
+(:class:`SdfVisibility`).  :class:`_MCAccumulate` keeps the sample loop's
+memory O(pixels): its backward re-walks the samples and reuses the
+visibilities saved by the forward.
 """
 from __future__ import annotations
 
@@ -20,17 +22,12 @@ import torch.nn.functional as F
 
 from ..render.light import EnvLight, eval_light, sample_light
 from .bsdf import lambert, pbr_specular
-from .math import (build_orthonormal_basis, cosine_sample, dir_to_latlong_uv, dot, luminance,
+from .math import (build_orthonormal_basis, cosine_sample, cross, dir_to_latlong_uv, dot, luminance,
                    safe_normalize, sqrt_nonneg)
 
 # ----------------------------------------------------------------------------
 # GGX-VNDF importance sampling
 # ----------------------------------------------------------------------------
-
-
-def _cross(a, b):
-    a, b = torch.broadcast_tensors(a, b)
-    return torch.linalg.cross(a, b)
 
 
 def _eval_ndf_ggx(alpha, cos_theta):
@@ -57,8 +54,8 @@ def _sample_ggx_vndf(alpha, wo_l, ux, uy):
     vh = safe_normalize(torch.cat([alpha * wo_l[..., 0:1], alpha * wo_l[..., 1:2], wo_l[..., 2:3]], -1))
     z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=vh.dtype, device=vh.device).expand_as(vh)
     x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device).expand_as(vh)
-    t1 = torch.where(vh[..., 2:3] < 0.9999, safe_normalize(_cross(z_axis, vh)), x_axis)
-    t2 = _cross(vh, t1)
+    t1 = torch.where(vh[..., 2:3] < 0.9999, safe_normalize(cross(z_axis, vh)), x_axis)
+    t2 = cross(vh, t1)
     r = torch.sqrt(torch.clamp(ux, 0.0, 1.0))[..., None]
     phi = (2.0 * math.pi) * uy[..., None]
     p1 = r * torch.cos(phi)
@@ -139,6 +136,95 @@ def bsdf_sample(p_diffuse, n, wo, sx, sy, sz, alpha, diffuse_only: bool = False)
     degen = take_diffuse & (p_diffuse < 1e-4)
     n_b = n.expand_as(wi)
     return torch.where(degen, n_b, wi), torch.where(degen, 1.0, pdf)
+
+
+# ----------------------------------------------------------------------------
+# SDF-volume shadow rays
+# ----------------------------------------------------------------------------
+
+
+def trilinear_sdf(grid, p, aabb_min, aabb_scale):
+    """Trilinear sample of an (R+1)³ grid at world points ``p`` (..., 3);
+    points outside the box read -1 (empty)."""
+    r = grid.shape[0] - 1
+    q = (p - aabb_min) * aabb_scale * r
+    inside = ((q >= 0.0) & (q <= r)).all(dim=-1)
+    q = torch.clamp(q, 0.0, r - 1e-4)
+    q0 = torch.floor(q).to(torch.int64)
+    t = q - q0
+    ix, iy, iz = q0[..., 0], q0[..., 1], q0[..., 2]
+    tx, ty, tz = t[..., 0], t[..., 1], t[..., 2]
+
+    def g(dx, dy, dz):
+        return grid[torch.clamp(ix + dx, max=r), torch.clamp(iy + dy, max=r), torch.clamp(iz + dz, max=r)]
+
+    c00 = g(0, 0, 0) * (1 - tz) + g(0, 0, 1) * tz
+    c01 = g(0, 1, 0) * (1 - tz) + g(0, 1, 1) * tz
+    c10 = g(1, 0, 0) * (1 - tz) + g(1, 0, 1) * tz
+    c11 = g(1, 1, 0) * (1 - tz) + g(1, 1, 1) * tz
+    c0 = c00 * (1 - ty) + c01 * ty
+    c1 = c10 * (1 - ty) + c11 * ty
+    return torch.where(inside, c0 * (1 - tx) + c1 * tx, -1.0)
+
+
+class SdfVisibility(NamedTuple):
+    """An occupancy grid marched along shadow rays + the static march
+    (JAX ``VisibilityCfg`` and its consts): ``n_steps`` samples at
+    t0 + dt·(i + ½), occluded where the largest sample exceeds
+    ``threshold``."""
+
+    grid: torch.Tensor  # (r + 1,)³, occupied where > threshold
+    t0: float
+    dt: float
+    n_steps: int
+    threshold: float
+    mode: str  # "nearest" or "trilinear"
+    r: int
+    aabb_min: tuple
+    aabb_scale: tuple
+
+
+def make_sdf_visibility(sdf_grid, aabb_min, aabb_size, n_steps: int = 24, t_min_vox: float = 2.0,
+                        occlusion_threshold: float = 0.0, mode: str = "nearest",
+                        max_grid_res: int = 65) -> SdfVisibility:
+    """The marcher over ``sdf_grid`` (occupied where > threshold), max-pooled
+    to at most ``max_grid_res`` per side (JAX ``make_sdf_visibility_parts``):
+    the march starts ``t_min_vox`` voxels off the surface and spans the
+    box's diagonal."""
+    if mode not in ("nearest", "trilinear"):
+        raise ValueError(f"mode {mode!r}: nearest or trilinear")
+    diag = float(np.linalg.norm(np.asarray(aabb_size, np.float64)))
+    grid = _downsample_occupancy(sdf_grid.detach(), max_grid_res)
+    r = grid.shape[0] - 1
+    t0 = t_min_vox * diag / max(r, 1)
+    return SdfVisibility(
+        grid=grid, t0=t0, dt=(diag - t0) / n_steps, n_steps=n_steps, threshold=occlusion_threshold,
+        mode=mode, r=r, aabb_min=tuple(float(v) for v in np.asarray(aabb_min, np.float64)),
+        aabb_scale=tuple(float(v) for v in 1.0 / np.asarray(aabb_size, np.float64)),
+    )
+
+
+def _march(vis: SdfVisibility, ro, rd):
+    """1 where no sample along the ray exceeds the threshold.  Sample
+    distances are computed in f32 as JAX's loop computes them."""
+    grid, r = vis.grid, vis.r
+    n = r + 1
+    flat = grid.reshape(-1)
+    f32 = lambda v: torch.tensor(v, dtype=ro.dtype, device=ro.device)
+    aabb_min, aabb_scale = f32(vis.aabb_min), f32(vis.aabb_scale)
+    t0, dt = f32(vis.t0), f32(vis.dt)
+    occ = torch.full(ro.shape[:-1], -math.inf, dtype=ro.dtype, device=ro.device)
+    for i in range(vis.n_steps):
+        p = ro + rd * (t0 + dt * f32(i + 0.5))
+        if vis.mode == "trilinear":
+            s = trilinear_sdf(grid, p, aabb_min, aabb_scale)
+        else:
+            q = (p - aabb_min) * aabb_scale * r
+            inside = ((q >= 0.0) & (q <= r)).all(dim=-1)
+            qi = torch.clamp(torch.round(q).to(torch.int64), 0, r)
+            s = torch.where(inside, flat[(qi[..., 0] * n + qi[..., 1]) * n + qi[..., 2]], -1.0)
+        occ = torch.maximum(occ, s)
+    return (occ <= vis.threshold).to(ro.dtype)[..., None]
 
 
 # ----------------------------------------------------------------------------
@@ -302,8 +388,11 @@ def make_shadow_field(occ_grid, aabb_min, aabb_size, ko: int = 16, t_min_vox: fl
     )
 
 
-def apply_visibility(vis: ShadowField, ro, rd):
-    """Shadow test: 1 = light reaches ro along rd, 0 = occluded.  (..., 1)."""
+def apply_visibility(vis, ro, rd):
+    """Shadow test of a :class:`ShadowField` or an :class:`SdfVisibility`:
+    1 = light reaches ro along rd, 0 = occluded.  (..., 1)."""
+    if isinstance(vis, SdfVisibility):
+        return _march(vis, ro, rd)
     n = vis.r + 1
     aabb_min = torch.tensor(vis.aabb_min, dtype=ro.dtype, device=ro.device)
     aabb_scale = torch.tensor(vis.aabb_scale, dtype=ro.dtype, device=ro.device)
@@ -385,7 +474,7 @@ def _pixel_probabilities(kd, ks, wo, nrm):
 
 class _ShadeWalk:
     """The per-block sample evaluation of :func:`env_shade` (closure state:
-    draws, strata, shadow field)."""
+    draws, strata, the shadow field or marcher)."""
 
     names = ("gb_normal", "kd", "ks", "wo", "alpha", "p_diffuse", "pool", "light_packed")
 
@@ -469,7 +558,7 @@ class _ShadeWalk:
 
 def env_shade(draws, mask, ro, gb_pos, gb_normal, view_pos, kd, ks, light: EnvLight,
               n_samples_x: int = 8, bsdf: str = "pbr", shadow_scale: float = 1.0,
-              visibility: ShadowField | None = None, light_pool: int = 4096,
+              visibility: ShadowField | SdfVisibility | None = None, light_pool: int = 4096,
               mc_block: int = 8, light_bf16: bool = True) -> ShadeBuffers:
     """(demodulated diffuse, specular) radiance per pixel; inputs are
     flattened pixel rows (P, 3)/(P, 1).  Draws: ``rot`` (P, 2), ``pool``

@@ -19,7 +19,7 @@ from ..ops.math import abs_tie_up, avg_pool_nhwc, safe_normalize, xfm_points
 from ..ops.mesh_ops import face_normals as compute_face_normals
 from ..ops.rasterize import (TILE, antialias, bary_screen_derivs, interpolate, rasterize, rasterize_peel,
                              rasterize_tiled_peel)
-from ..ops.shade import ShadowField, env_shade
+from ..ops.shade import ShadowField, SdfVisibility, env_shade
 from . import texture as tex2d
 from .light import EnvLight
 from .material import MLPTexture3DConfig, TextureMaterial, sample_mlp_texture
@@ -115,7 +115,7 @@ def _roll(img, shift):
 
 def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params, mat_cfg: MLPTexture3DConfig,
                 mvp, campos, light: EnvLight, flags: RenderFlags, background=None,
-                visibility: ShadowField | None = None, shadow_scale: float = 1.0,
+                visibility: ShadowField | SdfVisibility | None = None, shadow_scale: float = 1.0,
                 denoiser_sigma: float = 2.0, n_layers: int = 1, v_tex=None, t_tex_idx=None) -> dict:
     """Render one view → the reference's buffer dict, (H, W, C) layout.
 
@@ -337,7 +337,7 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params, mat_cfg: MLPTextur
 
 def render_second_layer(draws, verts, faces, v_nrm, mat_params: dict, mat_cfg: MLPTexture3DConfig, mvp, campos,
                         light: EnvLight, flags: RenderFlags, rast2, background=None,
-                        visibility: ShadowField | None = None, shadow_scale: float = 0.0) -> dict:
+                        visibility: ShadowField | SdfVisibility | None = None, shadow_scale: float = 0.0) -> dict:
     """The second-nearest surface of each pixel, shaded and composited (JAX
     ``render_second_layer`` :566, which peels its own raster): ``rast2`` is
     layer 2 of the view's peel (:func:`rasterize_layers`, or the

@@ -1,11 +1,21 @@
 """Inverse-rendering (multiview reconstruction) trainer — PyTorch twin of
-``gshell_tpu/train/reconstruct.py`` with the ``mesh_splat`` shadow source.
+``gshell_tpu/train/reconstruct.py``.
 
-One ``train_step``: extraction → shadow field → render every view → losses
-→ backward → non-finite-gradient zeroing → the reference's gradient tweaks
-(hash tables ÷8, light ×64) → three Adam groups with LR 10^(−0.0002·it) →
-clamps.  Geometry sub-groups: ``deform``, FlexiCubes' ``cube_weights``
-and ``msdf`` at ``lr_pos``, ``sdf_net`` at ``lr_pos·1e-2``.
+One ``train_step``: extraction → shadow occluder → render every view →
+losses → backward → non-finite-gradient zeroing → the reference's gradient
+tweaks (hash tables ÷8, light ×64) → three Adam groups with LR
+10^(−0.0002·it) → clamps.  Geometry sub-groups, in JAX's order: ``deform``
+(and FlexiCubes' ``cube_weights``) at ``lr_pos``; ``msdf`` / ``msdf_net``
+at ``lr_pos``, or ``lr_pos·1e-2`` under ``use_msdf_mlp``; ``sdf`` /
+``sdf_net`` at ``lr_pos·1e-2``.
+
+The shadow occluder (``shadow_source``): ``"mesh_splat"`` (the default) is
+the cut mesh's surface splat, which the tick builds; ``"sdf"`` is the
+legacy template-SDF proxy, the negated lattice SDF built here once a step,
+swept into a shadow field (``shadow_method`` "field") or marched along each
+ray ("march").  It occludes with the template regions the mSDF cuts away,
+and the JAX code names it the cause of its black renders; no config or
+flag selects it, only the Python API.
 
 The main path runs f32 matrix products in full precision: TF32 is switched
 off for cuBLAS and cuDNN when a :class:`Reconstructor` is built."""
@@ -15,9 +25,12 @@ import dataclasses
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..geometry.flexi_geometry import GShellFlexiGeometry
 from ..ops.image_loss import create_loss
+from ..ops.shade import make_sdf_visibility, make_shadow_field
 from ..render.light import update_pdf
 from ..render.material import MLPTexture3DConfig, init_mlp_texture
 from ..render.render import RenderFlags
@@ -33,12 +46,17 @@ class TrainConfig:
     batch: int = 2
     shadow_ramp_iters: int = 1000
     use_shadows: bool = True
+    shadow_method: str = "field"  # "field" (swept) or "march"; shadow_source "sdf" only
     shadow_ko: int = 16
+    shadow_source: str = "mesh_splat"  # or "sdf", the legacy template-SDF proxy
 
 
 # The geometry optimizer's groups, in order, and each one's learning rate as
-# a multiple of lr_pos (FlexiCubes adds ``cube_weights``, trained as ``deform``)
-GEO_LR_SCALE = {"deform": 1.0, "cube_weights": 1.0, "msdf": 1.0, "sdf_net": 1e-2}
+# a multiple of lr_pos (FlexiCubes adds ``cube_weights``, trained as
+# ``deform``); the mSDF's under ``use_msdf_mlp`` is MSDF_MLP_LR_SCALE
+GEO_LR_SCALE = {"deform": 1.0, "cube_weights": 1.0, "msdf": 1.0, "msdf_net": 1.0, "sdf": 1e-2,
+                "sdf_net": 1e-2}
+MSDF_MLP_LR_SCALE = 1e-2
 
 
 def lr_factor(count: int) -> float:
@@ -81,10 +99,23 @@ class Reconstructor:
         self.device = geometry.device
         self.image_loss_fn = create_loss(tcfg.loss)
         self.lr_lgt = tcfg.lr_lgt if tcfg.lr_lgt is not None else tcfg.lr_pos * 6.0
+        if tcfg.shadow_source not in ("mesh_splat", "sdf"):
+            raise ValueError(f"shadow_source {tcfg.shadow_source!r}: mesh_splat or sdf")
+        if tcfg.shadow_method not in ("field", "march"):
+            raise ValueError(f"shadow_method {tcfg.shadow_method!r}: field or march")
+        if tcfg.shadow_source == "sdf" and isinstance(geometry, GShellFlexiGeometry):
+            raise ValueError(
+                "shadow_source 'sdf' is a marching-tets option: the FlexiCubes field is inside-negative "
+                "like the tets one, but JAX's FlexiCubes sdf_lattice already negates it, so the trainer's "
+                "second negation would mark the exterior solid, and JAX's FlexiCubes trainer cannot run "
+                "to be compared; use the default 'mesh_splat'")
+        g = geometry.cfg
+        half = 0.5 * g.scale * np.asarray(g.boxscale, np.float64)
+        self.aabb_min, self.aabb_size = tuple((-half).tolist()), tuple((2 * half).tolist())
 
     def init_state(self, draws, pretrain_steps: int = 1000) -> TrainState:
         params_geo = self.geo.init_params(draws.child("geo"))
-        if pretrain_steps > 0:
+        if self.geo.cfg.use_sdf_mlp and pretrain_steps > 0:
             params_geo = self.geo.pretrain_sdf(params_geo, draws.child("pretrain"), steps=pretrain_steps)
         params_mat = init_mlp_texture(draws.child("mat"), self.mat_cfg, self.device)
         light_base = draws.uniform("light", (512, 512, 3)).to(self.device) * 0.5 + 0.25
@@ -98,15 +129,15 @@ class Reconstructor:
 
         unknown = set(params_geo) - set(GEO_LR_SCALE)
         if unknown:
-            raise ValueError(f"no optimizer group for the geometry parameters {sorted(unknown)} (ROADMAP D.1)")
-        params_geo = {k: leaf(params_geo[k]) if k != "sdf_net" else
-                      {n: [leaf(t) for t in v] for n, v in params_geo[k].items()}
-                      for k in GEO_LR_SCALE if k in params_geo}
+            raise ValueError(f"no optimizer group for the geometry parameters {sorted(unknown)}")
+        params_geo = {k: {n: [leaf(t) for t in v] for n, v in params_geo[k].items()} if k.endswith("_net")
+                      else leaf(params_geo[k]) for k in GEO_LR_SCALE if k in params_geo}
         params_mat = {"tables": leaf(params_mat["tables"]), "mlp": [leaf(w) for w in params_mat["mlp"]]}
         light_base = leaf(light_base)
         t = self.tcfg
-        opt_geo = torch.optim.Adam([{"params": _leaves(v), "lr": t.lr_pos * GEO_LR_SCALE[k]}
-                                    for k, v in params_geo.items()], eps=1e-8)
+        msdf_scale = MSDF_MLP_LR_SCALE if self.geo.cfg.use_msdf_mlp else 1.0
+        lr = lambda k: t.lr_pos * (msdf_scale if k.startswith("msdf") else GEO_LR_SCALE[k])
+        opt_geo = torch.optim.Adam([{"params": _leaves(v), "lr": lr(k)} for k, v in params_geo.items()], eps=1e-8)
         opt_mat = torch.optim.Adam(_leaves(params_mat), lr=t.lr_mat, eps=1e-8)
         opt_lgt = torch.optim.Adam([light_base], lr=self.lr_lgt, eps=1e-8)
         opts = (opt_geo, opt_mat, opt_lgt)
@@ -121,10 +152,12 @@ class Reconstructor:
         shadow_scale = min(it / t.shadow_ramp_iters, 1.0)
         denoiser_sigma = max(shadow_scale * 2.0, 1e-4)
         light = update_pdf(state.light_base)
+        visibility = self.sdf_occluder(state.params_geo) if t.use_shadows and t.shadow_source == "sdf" else None
         img_loss, depth_loss, reg_loss, aux = self.geo.tick(
             draws, state.params_geo, state.params_mat, self.mat_cfg, light, target, it,
             self.flags, self.image_loss_fn, use_shadows=t.use_shadows,
             shadow_scale=shadow_scale, denoiser_sigma=denoiser_sigma, shadow_ko=t.shadow_ko,
+            visibility=visibility,
         )
         total = img_loss + depth_loss + reg_loss
         for opt in state.optimizers:
@@ -143,8 +176,8 @@ class Reconstructor:
                 bad += (~finite).sum()
                 p.grad.copy_(torch.where(finite, p.grad, 0.0))
             # the SDF MLP's whole gradient, as it reaches Adam
-            sdf_norm = torch.linalg.vector_norm(
-                torch.cat([p.grad.reshape(-1) for p in _leaves(state.params_geo["sdf_net"])]))
+            sdf_norm = {} if "sdf_net" not in state.params_geo else {"sdf_net_grad_norm": torch.linalg.vector_norm(
+                torch.cat([p.grad.reshape(-1) for p in _leaves(state.params_geo["sdf_net"])]))}
             state.params_mat["tables"].grad.mul_(1.0 / 8.0)
             state.light_base.grad.mul_(64.0)
         for opt, sched in zip(state.optimizers, state.schedulers):
@@ -160,9 +193,20 @@ class Reconstructor:
             "depth_loss": depth_loss.detach(),
             "reg_loss": reg_loss.detach(),
             "nonfinite_grads": bad,
-            "sdf_net_grad_norm": sdf_norm,
+            **sdf_norm,
             **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()},
         }
+
+
+    def sdf_occluder(self, params_geo: dict):
+        """The legacy template-SDF occluder of ``shadow_source`` "sdf": the
+        negated lattice SDF (occupied inside, where the SDF is negative) over
+        the lattice box, swept into a shadow field or handed to the marcher
+        by ``shadow_method``."""
+        occ = -self.geo.sdf_lattice(params_geo)
+        if self.tcfg.shadow_method == "field":
+            return make_shadow_field(occ, self.aabb_min, self.aabb_size, ko=self.tcfg.shadow_ko)
+        return make_sdf_visibility(occ, self.aabb_min, self.aabb_size)
 
 
 def save_state(state: TrainState, draws, path: str, **extra) -> None:

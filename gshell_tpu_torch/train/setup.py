@@ -68,14 +68,6 @@ def resolve_device(name: str, prog: str) -> torch.device:
     return dev
 
 
-def unported_options(flags: Flags) -> list[str]:
-    """Config settings the port cannot honour yet, each with its ROADMAP item."""
-    out = []
-    if not flags.use_sdf_mlp or flags.use_msdf_mlp:
-        out.append("use_sdf_mlp: false / use_msdf_mlp: true (direct-SDF and mSDF-MLP fields, ROADMAP D.1)")
-    return out
-
-
 def material_config(flags: Flags) -> MLPTexture3DConfig:
     aabb = np.asarray(flags.aabb, np.float32).reshape(2, 3)
     return MLPTexture3DConfig(
@@ -97,6 +89,7 @@ def reconstructor_from_flags(flags: Flags, device, n_samples: int | None = None)
         boxscale=tuple(flags.boxscale),
         mlp=MLPConfig(n_freq=flags.n_freq, d_hidden=flags.d_hidden, n_hidden=flags.n_hidden,
                       skip_in=tuple(flags.skip_in)),
+        use_sdf_mlp=flags.use_sdf_mlp, use_msdf_mlp=flags.use_msdf_mlp,
         msdf_reg_open_scale=flags.msdf_reg_open_scale, msdf_reg_close_scale=flags.msdf_reg_close_scale,
         sdf_regularizer=flags.sdf_regularizer, eikonal_scale=flags.eikonal_scale,
         lambda_kd=flags.lambda_kd, lambda_ks=flags.lambda_ks, lambda_nrm=flags.lambda_nrm,

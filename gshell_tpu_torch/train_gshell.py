@@ -23,8 +23,11 @@ also holds the per-cube weights and their Adam moments).
 host) and baking the material into RES² atlases on the run's device:
 ``texture_kd.png``, ``texture_ks.png``, ``mesh_textured.obj`` and
 ``baked.mtl``, which ``load_obj(with_attrs=True)``, ``load_mtl`` and
-``merge_materials`` read back.  Settings the port cannot honour yet exit
-non-zero and name their ROADMAP item.
+``merge_materials`` read back.  The config's ``use_sdf_mlp`` /
+``use_msdf_mlp`` choose an SDF MLP (pretrained to a sphere for
+``sdf_mlp_pretrain_steps``) or a direct per-vertex SDF that starts as that
+sphere, and a direct mSDF or an mSDF MLP; the snapshot holds whichever
+(``sdf`` or ``sdf_net``, ``msdf`` or ``msdf_net``).
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ from .render.mesh import load_obj, save_obj, unit_size
 from .render.render import render_mesh, render_uv
 from .train.reconstruct import load_state, save_state
 from .train.setup import (add_bool, gt_light_material, kernel_launches, launches_since,
-                          reconstructor_from_flags, resolve_device, unported_options)
+                          reconstructor_from_flags, resolve_device)
 from .utils.config import load_flags
 from .utils.image import save_image
 from .utils.rng import TorchDraws
@@ -200,14 +203,11 @@ def main(argv=None) -> dict:
     flags = load_flags(args.config, iter=args.iter, batch=args.batch, out_dir=args.out_dir,
                        trainset_path=args.trainset_path, ref_mesh=args.ref_mesh,
                        n_samples=args.n_samples, use_flexicubes=args.flexicubes or None)
-    problems = unported_options(flags)
     if args.bake_texture < 0:
         parser.error("--bake-texture must be >= 0")
     if args.testset_path:
         parser.error("--testset-path is not used in training; evaluate with "
                      "python -m gshell_tpu_torch.eval_reconstruction --testset-path")
-    if problems:
-        raise SystemExit(f"{PROG}: not yet ported: " + "; ".join(problems))
     os.makedirs(flags.out_dir, exist_ok=True)
     rec = reconstructor_from_flags(flags, device)
 

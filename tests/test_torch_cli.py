@@ -5,10 +5,10 @@ iterations, then ``--resume`` for two more, give parameters, Adam states
 and logged losses equal bit for bit to four straight (with PyTorch's
 deterministic algorithms, which the CPU's multi-threaded index accumulation
 otherwise is not); ``eval_reconstruction`` writes ``metrics.txt`` with a
-finite PSNR and a Chamfer.  Also: the splat-coverage diagnostic, the options
-the port cannot honour (each exits and names its ROADMAP item), the device
-check (no silent CPU fallback) and the parsing of boolean options and
-``--spp``."""
+finite PSNR and a Chamfer.  Also: the splat-coverage diagnostic, the other
+fields (a direct SDF, an mSDF MLP) trained, resumed and evaluated, the
+device check (no silent CPU fallback) and the parsing of boolean options
+and ``--spp``."""
 import json
 import math
 
@@ -152,19 +152,46 @@ def test_splat_coverage_counts_and_unchanged_occupancy():
     assert float(cov["splat_samples_per_cell"]) == pytest.approx(4096 / (counts > 0).sum())
 
 
-@pytest.mark.parametrize("setting, item", [
-    ({"use_sdf_mlp": False}, "ROADMAP D.1"), ({"use_msdf_mlp": True}, "ROADMAP D.1"),
-    ({"use_sdf_mlp": False, "use_msdf_mlp": True}, "ROADMAP D.1"),
+def _train_resume_and_evaluate(files, tmp_path, monkeypatch, cfg: dict) -> dict:
+    """Train one iteration, resume for a second and bake the textures at
+    64², evaluate one held-out view and the Chamfer through the CLI → the
+    state's record."""
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    monkeypatch.setattr(train_gshell, "GT_VIEWS", 2)
+    monkeypatch.setattr(eval_reconstruction, "CHAMFER_SAMPLES", 1024)
+    argv = _train_argv(files, "never", "--snapshot-images", "no")
+    argv[argv.index("--config") + 1] = str(tmp_path / "cfg.json")
+    argv[argv.index("--out-dir") + 1] = str(tmp_path / "run")
+    first = train_gshell.main(argv + ["-i", "1"])
+    resumed = train_gshell.main(argv + ["-i", "2", "--resume", "--bake-texture", "64"])
+    assert first["start_it"] == 0 and resumed["start_it"] == 1 and [e["it"] for e in resumed["log"]] == [1]
+    assert resumed["bake"]["faces"] > 0 and resumed["bake"]["finite"]
+    assert (tmp_path / "run" / "mesh_textured.obj").exists() and (tmp_path / "run" / "texture_kd.png").exists()
+    for e in first["log"] + resumed["log"]:
+        assert all(math.isfinite(e[k]) for k in ("total", "img_loss", "reg_loss")) and e["nonfinite_grads"] == 0
+        assert e["n_faces"] > 0
+    res = eval_reconstruction.main([
+        "--state", str(tmp_path / "run" / "state.pt"), "--config", str(tmp_path / "cfg.json"),
+        "--synthetic-ref-mesh", str(files / "sphere.obj"), "--gt-mesh", str(files / "sphere.obj"),
+        "--n-views", "1", "--out-dir", str(tmp_path / "val"), "--device", "cpu"])
+    assert math.isfinite(res["psnr"]) and math.isfinite(res["chamfer"]) and res["chamfer"] > 0
+    return torch.load(str(tmp_path / "run" / "state.pt"), weights_only=True)
+
+
+@pytest.mark.parametrize("setting, keys", [
+    ({"use_sdf_mlp": False}, ["deform", "msdf", "sdf"]), ({"use_msdf_mlp": True}, ["deform", "msdf_net", "sdf_net"]),
+    ({"use_sdf_mlp": False, "use_msdf_mlp": True}, ["deform", "msdf_net", "sdf"]),
 ])
-def test_unported_settings_exit_and_name_their_item(files, tmp_path, setting, item):
-    cfg = tmp_path / "cfg.json"
-    cfg.write_text(json.dumps({**TINY, **setting}))
-    argv = _train_argv(files, "never")
-    argv[argv.index("--config") + 1] = str(cfg)
-    with pytest.raises(SystemExit, match=item):
-        train_gshell.main(argv)
-    with pytest.raises(SystemExit, match=item):
-        eval_reconstruction.main(["--state", "none.pt", "--config", str(cfg), "--device", "cpu"])
+def test_field_settings_train_resume_and_evaluate(files, tmp_path, monkeypatch, setting, keys):
+    """A direct SDF and an mSDF MLP, alone and together: the snapshot holds
+    those fields (and no other), the eikonal runs only with an SDF MLP."""
+    # 200 pretrain steps, as the FlexiCubes CLI test takes: after TINY's 10 the
+    # SDF MLP drawn first (with no direct mSDF drawn before it) has no surface yet
+    rec = _train_resume_and_evaluate(files, tmp_path, monkeypatch,
+                                     {**TINY, "sdf_mlp_pretrain_steps": 200, **setting})
+    assert rec["step"] == 2 and sorted(rec["params_geo"]) == keys
+    if "sdf" in keys:
+        assert rec["params_geo"]["sdf"].shape == (17 ** 3,)
 
 
 def test_train_rejects_a_test_set(files, capsys):

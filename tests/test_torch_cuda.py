@@ -13,6 +13,9 @@ pick another triangle only where the two candidates' depths tie within
 1e-6 (stage B's depth is depth_num·(1/area), the scan's Σ (e_k/area)·z_k).
 The bilateral stencil to rtol 1e-5 / atol 1e-6: the same taps in the same
 order, but the kernel's expf and the fused sums may round an ulp apart.
+The template-SDF marcher (plain PyTorch, no hand kernel) on the card against
+the CPU: nearest exactly, trilinear on at most 1e-4 of the rays (each
+sample is eager elementwise arithmetic on both sides, so none is expected).
 """
 import math
 
@@ -472,3 +475,21 @@ def test_texture2d_render_on_the_card_matches_the_cpu(dev):
         pbr_cpu, _ = render("cpu", "pbr")
     assert float((pbr_card["shaded"].cpu() - pbr_cpu["shaded"]).abs().mean()) < 2e-3
     assert "diffuse_light" in pbr_card and "diffuse_light" not in card
+
+
+@pytest.mark.parametrize("mode", ["nearest", "trilinear"])
+def test_sdf_marcher_on_the_card_matches_the_cpu(dev, mode):
+    from gshell_tpu_torch.ops.shade import apply_visibility, make_sdf_visibility
+
+    ax = torch.linspace(-0.7, 0.7, 97)
+    x, y, z = torch.meshgrid(ax, ax, ax, indexing="ij")
+    grid = 0.35 - torch.sqrt(x * x + y * y + z * z) + 0.05 * torch.sin(9.0 * x)
+    g = torch.Generator().manual_seed(0)
+    o = torch.rand((1 << 16, 3), generator=g) * 1.6 - 0.8
+    d = torch.nn.functional.normalize(torch.randn((1 << 16, 3), generator=g), dim=-1)
+    vis = make_sdf_visibility(grid, (-0.7,) * 3, (1.4,) * 3, mode=mode)
+    cpu = apply_visibility(vis, o, d)
+    card = apply_visibility(vis._replace(grid=vis.grid.to(dev)), o.to(dev), d.to(dev)).cpu()
+    assert 0 < float(cpu.mean()) < 1
+    n_diff = int((card != cpu).sum())
+    assert n_diff == 0 if mode == "nearest" else n_diff <= 1e-4 * o.shape[0], n_diff

@@ -124,11 +124,23 @@ def test_eval_takes_the_geometry_from_the_state(files, runs, config, capsys):
     assert f"step 4, {runs[0]['final_faces']} faces" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("setting, item", [({"use_sdf_mlp": False}, "ROADMAP D.1")])
-def test_flexi_unported_settings_still_exit(files, tmp_path, setting, item):
-    cfg = tmp_path / "cfg.json"
-    cfg.write_text(json.dumps({**TINY, "use_flexicubes": True, **setting}))
-    argv = _train_argv(files, "never")
-    argv[argv.index("--config") + 1] = str(cfg)
-    with pytest.raises(SystemExit, match=item):
-        train_gshell.main(argv)
+@pytest.mark.parametrize("setting, keys", [({"use_sdf_mlp": False}, ["cube_weights", "deform", "msdf", "sdf"])])
+def test_flexi_field_settings_train_resume_and_evaluate(files, tmp_path, monkeypatch, setting, keys):
+    """A direct SDF on FlexiCubes: one iteration, one resumed, an eval; the
+    snapshot holds the direct field (the sphere it starts as, stepped)."""
+    (tmp_path / "cfg.json").write_text(json.dumps({**TINY, "use_flexicubes": True, **setting}))
+    monkeypatch.setattr(train_gshell, "GT_VIEWS", 2)
+    monkeypatch.setattr(eval_reconstruction, "CHAMFER_SAMPLES", 1024)
+    argv = _train_argv(files, "never", "--snapshot-images", "no")
+    argv[argv.index("--config") + 1] = str(tmp_path / "cfg.json")
+    argv[argv.index("--out-dir") + 1] = str(tmp_path / "run")
+    train_gshell.main(argv + ["-i", "1"])
+    resumed = train_gshell.main(argv + ["-i", "2", "--resume"])
+    assert resumed["start_it"] == 1 and resumed["log"][0]["n_faces"] > 0 and resumed["log"][0]["eik_loss"] == 0
+    res = eval_reconstruction.main([
+        "--state", str(tmp_path / "run" / "state.pt"), "--config", str(tmp_path / "cfg.json"),
+        "--synthetic-ref-mesh", str(files / "sphere.obj"), "--gt-mesh", str(files / "sphere.obj"),
+        "--n-views", "1", "--out-dir", str(tmp_path / "val"), "--device", "cpu"])
+    assert math.isfinite(res["psnr"]) and math.isfinite(res["chamfer"])
+    rec = torch.load(str(tmp_path / "run" / "state.pt"), weights_only=True)
+    assert rec["step"] == 2 and sorted(rec["params_geo"]) == keys and rec["params_geo"]["sdf"].shape == (13 ** 3,)

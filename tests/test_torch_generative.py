@@ -89,6 +89,27 @@ def test_fields_match_jax(sdf_mlp, msdf_mlp):
         assert_close(got, w, rtol=1e-6, atol=1e-6, what=what)
 
 
+def test_flexi_direct_sdf_state_converts():
+    """``convert.params_geo_from_jax`` on a FlexiCubes state with a direct
+    SDF: per-cube weights, the direct ``sdf`` and ``msdf``; the port's
+    FlexiCubes ``fields`` of it equal JAX's."""
+    from gshell_tpu.geometry.flexi_geometry import FlexiGeometryConfig as JFlexiConfig
+    from gshell_tpu.geometry.flexi_geometry import GShellFlexiGeometry as JFlexi
+    from gshell_tpu_torch.geometry.flexi_geometry import FlexiGeometryConfig, GShellFlexiGeometry
+
+    jgeo = JFlexi(JFlexiConfig(grid_res=6, use_sdf_mlp=False))
+    params = jgeo.init_params(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(2)
+    params["deform"] = jnp.asarray(rng.uniform(-0.3, 0.3, size=params["deform"].shape).astype(np.float32))
+    params["cube_weights"] = jnp.asarray(rng.normal(size=params["cube_weights"].shape).astype(np.float32))
+    tp = params_geo_from_jax(jax.tree_util.tree_map(np.asarray, params), "cpu")
+    assert sorted(tp) == sorted(params) == ["cube_weights", "deform", "msdf", "sdf"]
+    np.testing.assert_array_equal(n(tp["cube_weights"]), np.asarray(params["cube_weights"]))
+    geo = GShellFlexiGeometry(FlexiGeometryConfig(grid_res=6, use_sdf_mlp=False), "cpu")
+    for got, w, what in zip(geo.fields(tp), jgeo.fields(params), ("v_def", "sdf", "msdf")):
+        assert_close(got, w, rtol=1e-6, atol=1e-6, what=what)
+
+
 def test_direct_sdf_init_matches_jax():
     jgeo = jgeometry.GShellGeometry(jgeometry.GeometryConfig(grid_res=RES, use_sdf_mlp=False))
     geo = GShellGeometry(GeometryConfig(grid_res=RES, use_sdf_mlp=False), "cpu")

@@ -1,0 +1,163 @@
+"""The legacy template-SDF shadow sources of the port against the JAX
+package's: the marcher (``make_sdf_visibility`` + ``apply_visibility``,
+JAX ``make_sdf_visibility_parts``), ``trilinear_sdf``, and a tets train step
+under ``TrainConfig(shadow_source="sdf")`` with ``shadow_method`` "field"
+and "march", against JAX's ``Reconstructor.train_step`` (the machinery of
+``tests/torch_train_step.py``).  On FlexiCubes the source raises.
+
+Rays graze a sphere, leave the box, start inside the occupied region and
+outside the box.  The march is held exactly in both modes: the port
+computes each sample distance in f32 as JAX's loop does.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_train_step as ts
+from gshell_tpu.ops.shade import apply_visibility as j_apply_visibility
+from gshell_tpu.ops.shade import make_sdf_visibility_parts, trilinear_sdf as j_trilinear_sdf
+from gshell_tpu_torch.geometry.flexi_geometry import FlexiGeometryConfig, GShellFlexiGeometry
+from gshell_tpu_torch.geometry.geometry import GeometryConfig, GShellGeometry
+from gshell_tpu_torch.ops.shade import ShadowField, SdfVisibility, apply_visibility, make_sdf_visibility, trilinear_sdf
+from gshell_tpu_torch.render.material import MLPTexture3DConfig
+from gshell_tpu_torch.render.render import RenderFlags
+from gshell_tpu_torch.train.reconstruct import Reconstructor, TrainConfig
+from torch_parity import assert_close, n, t
+
+torch.set_num_threads(1)
+HALF = 0.7  # the box is [-0.7, 0.7]³ (mesh_scale 1.4)
+RADIUS = 0.35
+
+
+def _sphere_grid(res: int):
+    """Occupancy-convention grid (positive inside) of a sphere, (res+1)³."""
+    ax = np.linspace(-HALF, HALF, res + 1, dtype=np.float32)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    return (RADIUS - np.sqrt(x * x + y * y + z * z)).astype(np.float32)
+
+
+def _rays(n_each: int = 400, seed: int = 0):
+    """(origins, unit directions): free rays from inside the box, rays that
+    graze the sphere (origin on a tangent plane, direction in it), rays
+    from inside the sphere, and rays from outside the box."""
+    rng = np.random.default_rng(seed)
+    unit = lambda v: v / np.linalg.norm(v, axis=-1, keepdims=True)
+    free_o = rng.uniform(-HALF, HALF, (n_each, 3))
+    free_d = unit(rng.normal(size=(n_each, 3)))
+    nrm = unit(rng.normal(size=(n_each, 3)))
+    tang = unit(np.cross(nrm, unit(rng.normal(size=(n_each, 3)))))
+    graze_o = nrm * RADIUS * rng.uniform(0.97, 1.05, (n_each, 1)) - tang * rng.uniform(0.05, 0.3, (n_each, 1))
+    inside_o = unit(rng.normal(size=(n_each, 3))) * rng.uniform(0.0, 0.1, (n_each, 1))  # the first sample is inside
+    outside_o = unit(rng.normal(size=(n_each, 3))) * rng.uniform(1.3, 2.0, (n_each, 1))
+    o = np.concatenate([free_o, graze_o, inside_o, outside_o]).astype(np.float32)
+    d = np.concatenate([free_d, tang, unit(rng.normal(size=(2 * n_each, 3)))]).astype(np.float32)
+    return o, d
+
+
+@pytest.mark.parametrize("mode", ["nearest", "trilinear"])
+@pytest.mark.parametrize("res", [32, 96])  # 96: the grid is max-pooled to 49 first
+def test_sdf_marcher_matches_jax(mode, res):
+    grid = _sphere_grid(res)
+    o, d = _rays()
+    amin, asz = (-HALF,) * 3, (2 * HALF,) * 3
+    cfg, consts = make_sdf_visibility_parts(jnp.asarray(grid), amin, asz, mode=mode)
+    want = np.asarray(j_apply_visibility(cfg, consts, jnp.asarray(o), jnp.asarray(d)))
+    vis = make_sdf_visibility(t(grid), amin, asz, mode=mode)
+    assert (vis.r, vis.n_steps, vis.mode) == (cfg.r, cfg.n_steps, cfg.mode) == (32 if res == 32 else 48, 24, mode)
+    assert vis.t0 == cfg.t0 and vis.dt == cfg.dt and vis.aabb_scale == cfg.aabb_scale
+    np.testing.assert_array_equal(n(vis.grid), np.asarray(consts["grid"]))
+    got = n(apply_visibility(vis, t(o), t(d)))
+    assert got.shape == want.shape == (len(o), 1)
+    occluded = 1.0 - want[:, 0]
+    k = len(o) // 4  # free, grazing, from inside the sphere, from outside the box
+    assert 0 < occluded[:k].mean() < 1 and 0 < occluded[k:2 * k].mean() < 1
+    assert occluded[2 * k:3 * k].all() and not occluded[3 * k:].all()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_trilinear_sdf_matches_jax():
+    grid = _sphere_grid(16)
+    p = np.random.default_rng(1).uniform(-0.9, 0.9, (2000, 3)).astype(np.float32)  # some outside the box
+    amin, scale = np.full(3, -HALF, np.float32), np.full(3, 1 / (2 * HALF), np.float32)
+    want = j_trilinear_sdf(jnp.asarray(grid), jnp.asarray(p), jnp.asarray(amin), jnp.asarray(scale))
+    got = trilinear_sdf(t(grid), t(p), t(amin), t(scale))
+    assert (n(got) == -1.0).any()
+    assert_close(got, want, rtol=1e-6, atol=1e-7, what="trilinear_sdf")
+
+
+# Loss terms, relative error; the largest readings field 4.32e-6, march
+# 3.03e-6 (shading_reg).  Gradient groups (cosine ≥, relative norm
+# difference ≤), ~1.5× off the readings:
+#   field  deform .9999996 6.99e-4 | msdf 1.0 2.13e-7 | sdf_net 1.0 2.10e-4
+#          tables .9999924 7.59e-4 | mlp .9999941 1.55e-3 | light .9990337 4.49e-5
+#   march  deform .9999996 6.88e-4 | msdf 1.0 2.13e-7 | sdf_net 1.0 1.94e-4
+#          tables .9999922 7.90e-4 | mlp .999994 1.57e-3 | light .9983447 1.10e-4
+# Updates alike: ≥ .9977 of every group's elements.
+LEGACY_LOSS_RTOL = {"field": 6.5e-6, "march": 4.5e-6}
+LEGACY_LIMITS = {
+    "field": {"deform": (0.9999994, 1.05e-3), "msdf": (0.9999999, 3.2e-7), "sdf": (0.9999999, 3.2e-4),
+              "tables": (0.999988, 1.15e-3), "mlp": (0.999991, 2.3e-3), "light": (0.99855, 6.7e-5)},
+    "march": {"deform": (0.9999994, 1.05e-3), "msdf": (0.9999999, 3.2e-7), "sdf": (0.9999999, 2.9e-4),
+              "tables": (0.999988, 1.2e-3), "mlp": (0.999991, 2.4e-3), "light": (0.9975, 1.65e-4)},
+}
+LEGACY_UPDATE_AGREEMENT = 0.9965
+
+
+@pytest.fixture(scope="module")
+def sdf_net():
+    return ts.pretrained_sdf_net()
+
+
+@pytest.fixture(scope="module", params=["field", "march"])
+def legacy(request, sdf_net):
+    geo_j = ts.jax_geometry(True, False)
+    return request.param, ts.step_both(geo_j, ts.jax_params(geo_j, sdf_net),
+                                       {"shadow_source": "sdf", "shadow_method": request.param})
+
+
+def test_legacy_source_step_matches_jax(legacy):
+    method, s = legacy
+    m_t, m_j = s["metrics_t"], s["metrics_j"]
+    for k in ts.COUNTS:
+        assert int(m_t[k]) == int(m_j[k]), (k, m_t[k], m_j[k])
+    assert int(m_t["n_faces"]) > 0 and "splat_cells" not in m_t  # no cut-mesh splat under this source
+    for k in ts.TERMS:
+        assert_close(m_t[k], m_j[k], rtol=LEGACY_LOSS_RTOL[method], atol=1e-7, what=k)
+    for k, (cos, dnorm) in ts.readings(s).items():
+        lo_cos, hi_norm = LEGACY_LIMITS[method][k.replace("_net", "")]
+        assert cos >= lo_cos and dnorm <= hi_norm, (k, cos, dnorm)
+    lr_pos = TrainConfig().lr_pos
+    for k in s["before"]:
+        share = ts.update_agreement(s, k, lr_pos * (1e-2 if k == "sdf_net" else 1.0))
+        assert share >= LEGACY_UPDATE_AGREEMENT, (k, share)
+
+
+def test_sdf_occluder_is_the_inside_of_the_template():
+    """The occluder marks the template's inside (SDF < 0) as solid: the share
+    of shadow rays it blocks from the box's corners toward the centre is 1,
+    from the corners outward 0 (the sign fault JAX's docstring records
+    marked the exterior instead)."""
+    geo = GShellGeometry(GeometryConfig(grid_res=16, use_sdf_mlp=False), "cpu")
+    params = {"deform": torch.zeros((geo.grid.n_verts, 3)), "msdf": torch.ones(geo.grid.n_verts),
+              "sdf": torch.linalg.norm(geo.lattice_verts(), dim=-1) - 0.3}
+    corners = torch.tensor([[sx, sy, sz] for sx in (-0.6, 0.6) for sy in (-0.6, 0.6) for sz in (-0.6, 0.6)])
+    for method in ("field", "march"):
+        rec = Reconstructor(geo, MLPTexture3DConfig(), RenderFlags(), TrainConfig(shadow_source="sdf",
+                                                                                 shadow_method=method))
+        vis = rec.sdf_occluder(params)
+        assert isinstance(vis, ShadowField if method == "field" else SdfVisibility)
+        inward = apply_visibility(vis, corners, -corners / corners.norm(dim=-1, keepdim=True))
+        outward = apply_visibility(vis, corners, corners / corners.norm(dim=-1, keepdim=True))
+        assert float(inward.sum()) == 0.0 and float(outward.sum()) == len(corners), method
+
+
+def test_flexicubes_refuses_the_sdf_source():
+    geo = GShellFlexiGeometry(FlexiGeometryConfig(grid_res=4), "cpu")
+    with pytest.raises(ValueError, match="already negates"):
+        Reconstructor(geo, MLPTexture3DConfig(), RenderFlags(), TrainConfig(shadow_source="sdf"))
+    for bad in ({"shadow_source": "bvh"}, {"shadow_method": "rays"}):
+        with pytest.raises(ValueError):
+            Reconstructor(GShellGeometry(GeometryConfig(grid_res=4), "cpu"), MLPTexture3DConfig(), RenderFlags(),
+                          TrainConfig(**bad))

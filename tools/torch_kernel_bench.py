@@ -75,7 +75,7 @@ def main() -> int:
     rec, state, draws, target = chip_smoke.working_point(dev)
     res = chip_smoke.RES
     with torch.no_grad():
-        mesh, faces_c, _, n_faces, v_nrm = rec.geo.extract(state.params_geo)
+        mesh, faces_c, _, n_faces, v_nrm, _ = rec.geo.extract(state.params_geo)
         for v in range(chip_smoke.BATCH):
             v_clip = gm.xfm_points(mesh.verts, target["mvp"][v])
             bins = rz.bin_pairs(v_clip, faces_c, (res, res))
