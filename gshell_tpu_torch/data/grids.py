@@ -1,11 +1,13 @@
 """Baked diffusion grids: the file sampler, the dataset and the splits.
 
 ``GridSampler`` is the single-process twin of the JAX package's
-``DistributedGridSampler`` (``gshell_tpu/data/multihost.py``): step ``s``
-draws its file indices from ``np.random.default_rng((seed, s))`` bit for
-bit as that sampler does, so a run resumed at step ``s`` reads the batches
-a straight run reads.  Files hold the JAX package's channels-last layout
-(``grid`` (D, D, D, C), ``occgrid`` (2D, 2D, 2D)); batches are NCDHW.
+``DistributedGridSampler`` (``gshell_tpu/data/multihost.py``; the port's
+multi-process one is ``data/multihost.py``): step ``s`` draws its file
+indices from ``np.random.default_rng((seed, s))`` (:func:`grid_indices`,
+which both share) bit for bit as that sampler does, so a run resumed at
+step ``s`` reads the batches a straight run reads.  Files hold the JAX
+package's channels-last layout (``grid`` (D, D, D, C), ``occgrid`` (2D,
+2D, 2D)); batches are NCDHW.
 ``GShellGridDataset`` and ``make_splits`` are copies of
 ``gshell_tpu/data/datasets.py``'s (numpy; ``tests/test_torch_imports.py``
 holds them equal)."""
@@ -15,6 +17,12 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+
+def grid_indices(seed: int, step: int, n_files: int, count: int) -> np.ndarray:
+    """Step ``step``'s file indices, the same on every rank."""
+    rng = np.random.default_rng((seed, step))
+    return rng.integers(n_files, size=count)
 
 
 class GridSampler:
@@ -32,11 +40,15 @@ class GridSampler:
         self.device = torch.device(device)
 
     def indices(self, step: int) -> np.ndarray:
-        rng = np.random.default_rng((self.seed, step))
-        return rng.integers(len(self.files), size=self.grad_acc * self.batch)
+        return grid_indices(self.seed, step, len(self.files), self.grad_acc * self.batch)
+
+    def rows(self) -> slice:
+        """The rows of each microbatch this sampler loads: all of them."""
+        return slice(0, self.batch)
 
     def __call__(self) -> dict:
-        idx = self.indices(self.step)
+        rows = self.rows()
+        idx = self.indices(self.step).reshape(self.grad_acc, self.batch)[:, rows].reshape(-1)
         self.step += 1
         loaded = {}
         for i in np.unique(idx).tolist():
@@ -45,7 +57,7 @@ class GridSampler:
         grid = np.stack([loaded[i][0] for i in idx.tolist()])
         occ = np.stack([loaded[i][1] for i in idx.tolist()])
         occ = occ[..., None] if occ.ndim == 4 else occ
-        a, b = self.grad_acc, self.batch
+        a, b = self.grad_acc, rows.stop - rows.start
         to = lambda arr: torch.from_numpy(np.ascontiguousarray(np.moveaxis(arr, -1, 1))).to(self.device)
         return {"grid": to(grid).reshape((a, b) + tuple(grid.shape[-1:]) + grid.shape[1:-1]),
                 "occgrid": to(occ).reshape((a, b, 1) + occ.shape[1:-1])}

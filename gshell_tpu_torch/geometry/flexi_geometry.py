@@ -133,18 +133,21 @@ class GShellFlexiGeometry:
     def tick(self, draws, params: dict, mat_params: dict, mat_cfg, light, target: dict,
              iteration: int, flags: RenderFlags, image_loss_fn: Callable,
              use_shadows: bool = True, shadow_scale: float = 1.0,
-             denoiser_sigma: float = 2.0, shadow_ko: int = 16, visibility=None):
+             denoiser_sigma: float = 2.0, shadow_ko: int = 16, visibility=None, spatial=None):
         """One training evaluation → (img_loss, depth_loss, reg_loss, aux): the
         tets tick's terms, the SDF BCE over every lattice edge, and
         ``l_dev_weight``·L_dev.  Views render one after another, each
         recomputed in the backward under ``view_batch_mode`` "map_remat", as
         in the tets tick (JAX's FlexiCubes tick always recomputes).
-        ``visibility``, where given, replaces the cut mesh's splat."""
+        ``visibility``, where given, replaces the cut mesh's splat.  With
+        ``spatial`` (a ``parallel.spatial.CellGrid``) the views render in
+        (view, band) cells over its ranks; the extraction stays replicated
+        (JAX's FlexiCubes extractor has no sharded form)."""
         mesh, sdf, faces_c, fvalid_c, n_faces = self.extract(params)
         img_loss, depth_loss, terms, aux = render_and_score(
             self, draws, params, mesh, faces_c, fvalid_c, mesh.v_nrm, mat_params, mat_cfg, light, target,
             iteration, flags, image_loss_fn, use_shadows, shadow_scale, denoiser_sigma, shadow_ko,
-            remat=self.cfg.view_batch_mode == "map_remat", visibility=visibility)
+            remat=self.cfg.view_batch_mode == "map_remat", visibility=visibility, spatial=spatial)
         sdf_reg = reg.sdf_reg_loss(sdf, self.grid_edges) * sdf_weight(self.cfg, iteration)
         reg_loss = (sdf_reg + terms["eik_loss"] + terms["msdf_reg"] + terms["shading_reg"]
                     + self.cfg.l_dev_weight * mesh.l_dev)

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.mesh_ops import auto_normals, compact_faces, sample_surface
 from ..ops.shade import make_shadow_field, splat_lattice
+from ..parallel.spatial import CellGrid, render_batch_banded
 from ..render import regularizer as reg
 from ..render.render import RenderFlags, render_mesh, render_second_layer
 from .gshell_tets import GShellTets
@@ -68,6 +69,9 @@ class GeometryConfig:
     capacity_safety: float = 1.0
     max_tets: Optional[int] = None
     max_verts: Optional[int] = None
+    # under a banded render over a process group, split the extractor's
+    # per-slot stages over the ranks (outputs replicated by a stitch)
+    shard_extraction: bool = True
 
 
 class CutMesh(NamedTuple):
@@ -208,17 +212,18 @@ class GShellGeometry:
         if "msdf" in params:
             params["msdf"].clamp_(-2.0, 2.0)
 
-    def extract(self, params: dict):
+    def extract(self, params: dict, shard_group=None):
         """Cut mesh with its faces compacted to the front of a max_tets
         buffer → (mesh, faces, face_valid, n_faces, smooth vertex normals,
         the lattice SDF the extractor read: without gradient on the lazy
-        path, with it otherwise)."""
+        path, with it otherwise).  ``shard_group``: the extractor's per-slot
+        stages split over its ranks."""
         cfg = self.cfg
         if cfg.lazy_field_grad and (cfg.use_sdf_mlp or cfg.use_msdf_mlp):
             v_def, sdf, msdf, sdf_fn, msdf_fn = self.fields_lazy(params)
         else:
             (v_def, sdf, msdf), sdf_fn, msdf_fn = self.fields(params), None, None
-        mesh = self.extractor(v_def, sdf, msdf, sdf_fn=sdf_fn, msdf_fn=msdf_fn)
+        mesh = self.extractor(v_def, sdf, msdf, sdf_fn=sdf_fn, msdf_fn=msdf_fn, shard_group=shard_group)
         faces_c, fvalid_c, n_faces = compact_faces(mesh.faces, mesh.face_valid, cap=self.extractor.max_tets)
         return mesh, faces_c, fvalid_c, n_faces, auto_normals(mesh.verts, faces_c, fvalid_c), sdf
 
@@ -232,7 +237,8 @@ class GShellGeometry:
     def tick(self, draws, params: dict, mat_params: dict, mat_cfg, light, target: dict,
              iteration: int, flags: RenderFlags, image_loss_fn: Callable,
              use_shadows: bool = True, shadow_scale: float = 1.0,
-             denoiser_sigma: float = 2.0, shadow_ko: int = 16, visibility=None):
+             denoiser_sigma: float = 2.0, shadow_ko: int = 16, visibility=None,
+             spatial: Optional[CellGrid] = None):
         """One training evaluation → (img_loss, depth_loss, reg_loss, aux).
         ``target``: 'mvp' (B,4,4), 'campos' (B,3), 'img' (B,H,W,4),
         'background' (B,H,W,3); 'invdepth' (B,H,W,1), 'img_second'
@@ -240,12 +246,17 @@ class GShellGeometry:
         config turns on.  Views render one after another, each recomputed
         in the backward under ``view_batch_mode`` "map_remat".  Shadows
         come from ``visibility`` where the caller built an occluder (the
-        template-SDF sources), else from the cut mesh's splat."""
-        mesh, faces_c, fvalid_c, n_faces, v_nrm, sdf = self.extract(params)
+        template-SDF sources), else from the cut mesh's splat.  With
+        ``spatial`` the views render in (view, band) cells over its ranks
+        (``view_batch_mode`` does not apply), and under
+        ``shard_extraction`` the extractor's per-slot stages split over
+        them too."""
+        shard = spatial.group if spatial is not None and self.cfg.shard_extraction else None
+        mesh, faces_c, fvalid_c, n_faces, v_nrm, sdf = self.extract(params, shard)
         img_loss, depth_loss, terms, aux = render_and_score(
             self, draws, params, mesh, faces_c, fvalid_c, v_nrm, mat_params, mat_cfg, light, target,
             iteration, flags, image_loss_fn, use_shadows, shadow_scale, denoiser_sigma, shadow_ko,
-            remat=self.cfg.view_batch_mode == "map_remat", visibility=visibility)
+            remat=self.cfg.view_batch_mode == "map_remat", visibility=visibility, spatial=spatial)
         # on the lazy path the lattice SDF carries no gradient: the BCE reads
         # the crossing-edge slots the extractor re-evaluated (the same edges)
         r1 = self.cfg.grid_res + 1
@@ -309,7 +320,7 @@ def checkpoint_draws(fn, draws):
 def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, mat_params: dict, mat_cfg,
                      light, target: dict, iteration: int, flags: RenderFlags, image_loss_fn: Callable,
                      use_shadows: bool, shadow_scale: float, denoiser_sigma: float, shadow_ko: int,
-                     remat: bool = False, visibility=None):
+                     remat: bool = False, visibility=None, spatial: Optional[CellGrid] = None):
     """What the tets and the FlexiCubes ticks share: the shadow field of the
     cut mesh's splat (draws ``splat``), every view's render (``view{b}``;
     its second layer, when the config's ``use_img_2nd_layer`` or
@@ -320,7 +331,10 @@ def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, m
     regularizers and the shading ones.  ``mesh`` has ``verts``, ``msdf``,
     ``msdf_boundary`` and ``n_verts_watertight``.  → (img_loss, depth_loss,
     {eik_loss, msdf_reg, shading_reg}, {raster_dropped, px_dropped, splat
-    coverage}).  A ``visibility`` the caller built takes the splat's place."""
+    coverage}).  A ``visibility`` the caller built takes the splat's place.
+    With ``spatial`` the views render in (view, band) cells
+    (:func:`parallel.spatial.render_batch_banded`; cell (v, b) draws under
+    ``view{v}/band{b}``, with no recomputation whatever ``remat`` says)."""
     cfg, dev = geo.cfg, geo.device
     coverage = {}
     if use_shadows and visibility is None:
@@ -329,23 +343,30 @@ def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, m
     second = cfg.use_img_2nd_layer or cfg.use_depth_2nd_layer
     n_views = target["mvp"].shape[0]
 
-    def render(b):
-        vd = draws.child(f"view{b}")
-        mvp, campos, bg = target["mvp"][b], target["campos"][b], target["background"][b]
+    def render_view(vd, mvp, campos, bg, flags_):
         buf = render_mesh(vd, mesh.verts, faces_c, v_nrm, mesh.msdf, mat_params, mat_cfg, mvp, campos, light,
-                          flags, background=bg, visibility=visibility, shadow_scale=shadow_scale,
+                          flags_, background=bg, visibility=visibility, shadow_scale=shadow_scale,
                           denoiser_sigma=denoiser_sigma, n_layers=2 if second else 1)
         if second:
             buf.update(render_second_layer(vd.child("second"), mesh.verts, faces_c, v_nrm, mat_params, mat_cfg,
-                                           mvp, campos, light, flags, background=bg, visibility=visibility,
+                                           mvp, campos, light, flags_, background=bg, visibility=visibility,
                                            shadow_scale=shadow_scale, rast2=buf.pop("rast_second")))
         return buf
 
-    if remat and n_views > 1:
-        views = [checkpoint_draws(lambda b=b: render(b), draws) for b in range(n_views)]
+    def render(b):
+        return render_view(draws.child(f"view{b}"), target["mvp"][b], target["campos"][b],
+                           target["background"][b], flags)
+
+    if spatial is not None:
+        buffers = render_batch_banded(
+            lambda cd, mvp, campos, bg, res: render_view(cd, mvp, campos, bg, flags._replace(resolution=res)),
+            draws, target["mvp"], target["campos"], target["background"], flags.resolution, spatial)
     else:
-        views = [render(b) for b in range(n_views)]
-    buffers = {k: torch.stack([torch.as_tensor(v[k], device=dev) for v in views]) for k in views[0]}
+        if remat and n_views > 1:
+            views = [checkpoint_draws(lambda b=b: render(b), draws) for b in range(n_views)]
+        else:
+            views = [render(b) for b in range(n_views)]
+        buffers = {k: torch.stack([torch.as_tensor(v[k], device=dev) for v in views]) for k in views[0]}
 
     color_ref = target["img"]
     gt_mask = color_ref[..., 3:]

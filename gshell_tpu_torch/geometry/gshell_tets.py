@@ -21,6 +21,7 @@ import torch
 from ..ops.compact import nonzero_compact
 from ..ops.math import build_orthonormal_basis
 from ..ops.mesh_ops import auto_normals
+from ..parallel.sharding import slot_range, stitch, world
 from . import tet_tables as tt
 from .tet_grid import EDGE_OFFSETS, TetGrid, _PATHS, _edge_class_bases, default_capacities
 
@@ -215,18 +216,33 @@ class GShellTets:
         off = torch.abs(pb - pa)
         return torch.minimum(pa, pb), self._key_to_cls[off[..., 0] * 4 + off[..., 1] * 2 + off[..., 2]]
 
-    def __call__(self, pos, sdf, msdf, sdf_fn=None, msdf_fn=None, compute_tangents: bool = False) -> GShellMesh:
+    def __call__(self, pos, sdf, msdf, sdf_fn=None, msdf_fn=None, compute_tangents: bool = False,
+                 shard_group=None) -> GShellMesh:
         """Extract the open-surface mesh.  ``pos`` (N, 3) deformed lattice,
         ``sdf``/``msdf`` (N,).  With ``sdf_fn`` / ``msdf_fn`` (lazy
         gradients, ``(rows, 3) → (rows,)``) the dense field is read only for
         signs and the gradient-carrying values are re-evaluated at the
         crossing-edge endpoints.  ``compute_tangents`` adds ``v_tng``: the
         orthonormal-basis tangent of each template vertex's smooth normal
-        over the template faces, carried through the cut like positions."""
+        over the template faces, carried through the cut like positions.
+
+        ``shard_group`` (a process group; JAX's ``shard_mesh``): each rank
+        computes the per-slot stages over a contiguous range of slots — the
+        crossing-edge interpolation over the V vertex slots, the cut and the
+        face emission over the MT tet slots — and a stitch replicates their
+        outputs, which equal the unsharded extraction's.  The O(res³)
+        compaction stays replicated.  Not with ``compute_tangents``, whose
+        template normals sum over every tet's faces."""
         V, MT = self.max_verts, self.max_tets
         dev = self.device
         res = self.grid.res
         n_lat = res + 1
+        rank, size = world(shard_group)
+        if shard_group is not None and compute_tangents:
+            raise ValueError("compute_tangents is not split over a shard group")
+        v0, v1 = slot_range(V, rank, size)
+        t0, t1 = slot_range(MT, rank, size)
+        nv, nt = v1 - v0, t1 - t0
         pos_p = torch.cat([pos, torch.zeros((1, 3), dtype=pos.dtype, device=dev)], dim=0)
         sdf_p = torch.cat([sdf, torch.ones((1,), dtype=sdf.dtype, device=dev)], dim=0)
         msdf_p = torch.cat([msdf, -torch.ones((1,), dtype=msdf.dtype, device=dev)], dim=0)
@@ -235,18 +251,21 @@ class GShellTets:
         occ_flat = occ_vol.reshape(-1)
         cube_act, cube_xyz, cube_ok = self.active_cubes(occ_vol)
         tet_valid, corner_xyz, corner_vid, n_valid = self.compact_tets(occ_flat, cube_xyz, cube_ok)
+        tet_valid, corner_xyz, corner_vid = tet_valid[t0:t1], corner_xyz[t0:t1], corner_vid[t0:t1]
 
         n_cross = sum(
             (occ_vol[:n_lat - ox, :n_lat - oy, :n_lat - oz] != occ_vol[ox:, oy:, oz:]).sum()
             for ox, oy, oz in EDGE_OFFSETS.tolist()
         )
         slot_valid, ev0, ev1, _, _, vert_slot_of_edges = self.compact_edges(occ_flat, cube_act)
+        slot_valid, ev0, ev1 = slot_valid[v0:v1], ev0[v0:v1], ev1[v0:v1]
 
+        # ---- crossing edges → template vertices (this rank's vertex slots) ----
         pa, pb = pos_p[ev0], pos_p[ev1]
         if sdf_fn is not None:
             sab = sdf_fn(torch.cat([pa, pb], dim=0))
-            sa = torch.where(slot_valid, sab[:V], 1.0)
-            sb = torch.where(slot_valid, sab[V:], 1.0)
+            sa = torch.where(slot_valid, sab[:nv], 1.0)
+            sb = torch.where(slot_valid, sab[nv:], 1.0)
         else:
             sa, sb = sdf_p[ev0], sdf_p[ev1]
         denom_inv = _safe_inv_denominator(sa - sb, slot_valid)
@@ -255,25 +274,30 @@ class GShellTets:
         verts = torch.where(slot_valid[:, None], pa * wa[:, None] + pb * wb[:, None], 0.0)
         if msdf_fn is not None:
             mab = msdf_fn(torch.cat([pa, pb], dim=0))
-            ma = torch.where(slot_valid, mab[:V], -1.0)
-            mb = torch.where(slot_valid, mab[V:], -1.0)
+            ma = torch.where(slot_valid, mab[:nv], -1.0)
+            mb = torch.where(slot_valid, mab[nv:], -1.0)
         else:
             ma, mb = msdf_p[ev0], msdf_p[ev1]
         msdf_vert = torch.where(slot_valid, ma * wa + mb * wb, 0.0)
         msdf_vert_sg = torch.where(slot_valid, ma * wa.detach() + mb * wb.detach(), 0.0)
+        if shard_group is not None:
+            slots = torch.cat([verts, torch.stack([msdf_vert, msdf_vert_sg, sa, sb], -1)], 1)
+            verts, msdf_vert, msdf_vert_sg, sa, sb = stitch(_placed(slots, V, v0), shard_group).split(
+                [3, 1, 1, 1, 1], 1)
+            msdf_vert, msdf_vert_sg, sa, sb = (t[:, 0] for t in (msdf_vert, msdf_vert_sg, sa, sb))
 
         zero1 = torch.zeros((1,), dtype=pos.dtype, device=dev)
         verts_buf = torch.cat([verts, torch.zeros((1, 3), dtype=pos.dtype, device=dev)], dim=0)
         msdf_buf = torch.cat([msdf_vert, zero1])
         msdf_sg_buf = torch.cat([msdf_vert_sg, zero1])
 
-        # ---- per-tet template faces ----------------------------------------
+        # ---- per-tet template faces (this rank's tet slots) -----------------
         g_occ4 = occ_flat[corner_vid].to(torch.int64)
         tetindex = (g_occ4 * torch.tensor([1, 2, 4, 8], device=dev)).sum(dim=-1)
         tetindex = torch.where(tet_valid, tetindex, 15)
         num_tri = self.num_tri_table[tetindex]
         te_lo, te_cls = self.tet_edge_lo_cls(corner_xyz)
-        idx6 = vert_slot_of_edges(te_lo, te_cls, tet_valid[:, None])  # (MT, 6)
+        idx6 = vert_slot_of_edges(te_lo, te_cls, tet_valid[:, None])  # (nt, 6)
         v_tng_t = None
         if compute_tangents:
             f01 = torch.gather(idx6, 1, torch.clamp(self.triangle_table[tetindex], 0, 5))
@@ -284,7 +308,7 @@ class GShellTets:
 
         # ---- mSDF cutting -----------------------------------------------------
         me = torch.clamp(self.mesh_edge_table[tetindex], 0, 5)
-        corners = torch.gather(idx6, 1, me[:, :4])  # (MT, 4) ∈ [0, V]
+        corners = torch.gather(idx6, 1, me[:, :4])  # (nt, 4) ∈ [0, V]
         cattr = torch.cat([verts_buf, msdf_buf[:, None], msdf_sg_buf[:, None]], dim=1)[corners]
         c_msdf, c_msdf_sg = cattr[..., 3], cattr[..., 4]
         mocc = (c_msdf > 0).to(torch.int64)
@@ -308,7 +332,7 @@ class GShellTets:
             tu = v_tng_t[corners]
             b_tng = tu * bu[..., None] + tu[:, nxt] * bw[..., None]
 
-        b_gid = (V + 1) + self._arange(MT)[:, None] * 4 + self._arange(4)[None, :]
+        b_gid = (V + 1) + (t0 + self._arange(nt))[:, None] * 4 + self._arange(4)[None, :]
         idx_tri_map = torch.cat([corners[:, :3], b_gid[:, :3]], dim=1)
         idx_quad_map = torch.cat([corners, b_gid], dim=1)
         tri_row = torch.clamp(self.tri_table[idx_tri], 0, 5)
@@ -319,7 +343,7 @@ class GShellTets:
         tri_fvalid = (farange < self.num_tri_tri[idx_tri][:, None]) & (farange < 2)
         quad_fvalid = farange < self.num_tri_quad[idx_quad][:, None]
         tri_faces4 = torch.cat(
-            [tri_faces, torch.full((MT, 2, 3), V + 1 + 4 * MT, dtype=torch.int64, device=dev)], dim=1
+            [tri_faces, torch.full((nt, 2, 3), V + 1 + 4 * MT, dtype=torch.int64, device=dev)], dim=1
         )
         faces_aug = torch.where(is_quad[:, None, None], quad_faces, tri_faces4)
         face_valid = torch.where(is_quad[:, None], quad_fvalid, tri_fvalid)
@@ -330,6 +354,12 @@ class GShellTets:
         b_mask = tet_valid[:, None] & cut_ok
         b_verts = torch.where(b_mask[..., None], b_verts, 0.0).reshape(-1, 3)
         b_msdf = torch.where(b_mask, b_msdf, 0.0).reshape(-1)
+        if shard_group is not None:
+            ints = stitch(_placed(torch.cat([faces_aug, face_valid[:, None].to(torch.int64)], 1), 4 * MT, 4 * t0),
+                          shard_group)
+            faces_aug, face_valid = ints[:, :3], ints[:, 3] > 0
+            floats = stitch(_placed(torch.cat([b_verts, b_msdf[:, None]], 1), 4 * MT, 4 * t0), shard_group)
+            b_verts, b_msdf = floats[:, :3], floats[:, 3]
         v_tng = None
         if compute_tangents:
             v_tng = torch.cat([v_tng_t, torch.where(b_mask[..., None], b_tng, 0.0).reshape(-1, 3)], dim=0)
@@ -345,3 +375,9 @@ class GShellTets:
             edge_sdf=torch.stack([sa, sb], dim=-1),
             v_tng=v_tng,
         )
+
+
+def _placed(x, n: int, start: int):
+    """``x`` at rows [start, start + len(x)) of n rows, zeros elsewhere."""
+    return torch.cat([x.new_zeros((start,) + x.shape[1:]), x,
+                      x.new_zeros((n - start - x.shape[0],) + x.shape[1:])])

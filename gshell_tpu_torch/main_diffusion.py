@@ -24,6 +24,16 @@ run sees.  ``.npz`` files are in the JAX package's channels-last layout
 (grids and samples pass between the packages unchanged).  With
 ``--mask-file`` the samplers mask every step, as the sampler API does.
 Runs on ``--device cuda`` unless given ``--device cpu``.
+
+Several processes (``--multihost``, JAX's flag): one process per GPU in a
+``torch.distributed`` group, from ``torchrun`` (``torchrun
+--nproc-per-node N -m gshell_tpu_torch.main_diffusion --multihost …``) or
+with ``--coordinator host:port --num-processes N --process-id R`` on each.
+The backend is NCCL on ``cuda`` and gloo on ``cpu``; ``--dist-backend
+gloo`` puts several ranks on one card (NCCL refuses two ranks on one
+device).  Rank r trains on rows [r·B/W, (r+1)·B/W) of each global batch of
+``--batch``, opening only their files; rank 0 alone prints, writes the
+checkpoint and the samples.
 """
 from __future__ import annotations
 
@@ -34,11 +44,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .data.grids import GridSampler
+from .data.multihost import DistributedGridSampler
 from .models.evaler import cond_gen, uncond_gen, uncond_gen_interp
 from .models.sampling import get_ddim_sampler, get_pc_sampler
 from .models.unet3d import UNet3DConfig, n_params
+from .parallel.sharding import init_multihost, make_mesh, rank_device
 from .train.diffusion import DiffusionTrainConfig, DiffusionTrainer
 from .train.setup import resolve_device
 from .utils.rng import TorchDraws
@@ -71,6 +84,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--base-channels", type=int, default=None)
     p.add_argument("--ch-mult", type=str, default=None, help="comma-separated, e.g. 1,2,2,4,4,4")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--multihost", action="store_true",
+                   help="one process of a torch.distributed group (torchrun's environment, or --coordinator)")
+    p.add_argument("--coordinator", type=str, default=None, help="host:port of rank 0, without torchrun")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="default nccl on cuda, gloo on cpu; gloo puts several ranks on one card")
     return p
 
 
@@ -94,6 +114,22 @@ def main(argv=None) -> dict:
     far as the mode fills them."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device, PROG)
+    if not args.multihost:
+        return run(args, device, None)
+    init_multihost(args.coordinator, args.num_processes, args.process_id, args.dist_backend, device.type)
+    try:
+        device = rank_device(device.type)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        return run(args, device, make_mesh(device_type=device.type))
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args, device, mesh) -> dict:
+    """One mode of ``main`` on ``device``, data parallel over ``mesh``."""
+    rank = dist.get_rank() if mesh is not None else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     os.makedirs(args.workdir, exist_ok=True)
     feature_mask = occ_mask = None
     if args.mask_file:
@@ -108,13 +144,14 @@ def main(argv=None) -> dict:
         unet_kw.update(base_channels=args.base_channels or 128, ch_mult=mult,
                        down_block_types=("ResBlock",) * (n - 1) + ("AttnResBlock",),
                        up_block_types=("AttnResBlock",) + ("ResBlock",) * (n - 1))
-    trainer = DiffusionTrainer(cfg, UNet3DConfig(**unet_kw), feature_mask, occ_mask, device)
+    trainer = DiffusionTrainer(cfg, UNet3DConfig(**unet_kw), feature_mask, occ_mask, device, mesh)
     state = trainer.init_state(TorchDraws(torch.Generator(device).manual_seed(args.seed)).child("init"))
     ckpt_meta = os.path.join(args.workdir, "checkpoints-meta.pt")
     state = trainer.restore_checkpoint(ckpt_meta, state)
     out = {"params": n_params(state.model), "start_step": state.step, "log": [], "samples": []}
-    print(f"{PROG}: {out['params']} parameters, step {state.step}, {trainer.unet_cfg.compute_dtype} "
-          f"(TF32 off), remat {trainer.unet_cfg.remat}, device {device}", flush=True)
+    say(f"{PROG}: {out['params']} parameters, step {state.step}, {trainer.unet_cfg.compute_dtype} "
+        f"(TF32 off), remat {trainer.unet_cfg.remat}, device {device}"
+        + (f", {trainer.world} ranks over {dist.get_backend()}" if mesh is not None else ""), flush=True)
 
     if args.mode == "train":
         if not args.data_glob:
@@ -123,22 +160,27 @@ def main(argv=None) -> dict:
         if not files:
             raise SystemExit(f"{PROG}: no grids match {args.data_glob}")
         start = state.step
-        sampler = GridSampler(files, args.grad_acc, args.batch, seed=args.seed, start_step=start, device=device)
+        if mesh is None:
+            sampler = GridSampler(files, args.grad_acc, args.batch, seed=args.seed, start_step=start, device=device)
+        else:
+            sampler = DistributedGridSampler(files, args.grad_acc, args.batch, trainer.rank, trainer.world,
+                                             seed=args.seed, start_step=start, device=device)
         for it in range(start, args.n_iters):
             t0 = time.time()
             batch = sampler()
             state, m = trainer.train_step(state, _step_draws(args.seed, it, device), batch)
             if it % args.log_freq == 0:
-                out["log"].append({"step": it, "s": time.time() - t0, **m})
-                print(f"step {it}: loss={m['loss']:.6f} grad_norm={m['grad_norm']:.4f} "
-                      f"({time.time() - t0:.3f} s)", flush=True)
+                extra = {"allreduce_s": trainer.allreduce_seconds} if mesh is not None else {}
+                out["log"].append({"step": it, "s": time.time() - t0, **m, **extra})
+                say(f"step {it}: loss={m['loss']:.6f} grad_norm={m['grad_norm']:.4f} "
+                    f"({time.time() - t0:.3f} s)", flush=True)
             if it % args.snapshot_freq == 0 and it > 0:
                 t0 = time.time()
                 trainer.save_checkpoint(ckpt_meta, state)
                 out["snapshot_seconds"] = time.time() - t0
                 out["snapshot_bytes"] = os.path.getsize(ckpt_meta)
-                print(f"checkpoint at step {state.step}: {ckpt_meta} ({out['snapshot_bytes']} bytes, "
-                      f"{out['snapshot_seconds']:.2f} s)", flush=True)
+                say(f"checkpoint at step {state.step}: {ckpt_meta} ({out['snapshot_bytes']} bytes, "
+                    f"{out['snapshot_seconds']:.2f} s)", flush=True)
         return out
 
     state.ema.copy_to(state.model.parameters())  # sample with the EMA weights
@@ -156,9 +198,10 @@ def main(argv=None) -> dict:
                 torch.cuda.synchronize(device)
             out["sampling_seconds"] += time.time() - mark
             path = os.path.join(args.workdir, name.format(i))
-            _save_sample(path, x, occ)
+            if rank == 0:
+                _save_sample(path, x, occ)
             out["samples"].append(path)
-            print(f"{os.path.basename(path)} saved ({time.time() - t0:.2f} s)", flush=True)
+            say(f"{os.path.basename(path)} saved ({time.time() - t0:.2f} s)", flush=True)
             mark = time.time()
         return fn
 

@@ -20,16 +20,21 @@ import torch
 from .sde import VPSDE, _per_sample, perturb
 
 
-def sample_perturbation(sde: VPSDE, draws, x, x_occ):
+def sample_perturbation(sde: VPSDE, draws, x, x_occ, rows: Optional[tuple] = None):
     """The loss's random draws → (labels, noise, perturbed, noise_occ,
     perturbed_occ): timestep labels ``"labels"``, standard-normal ``"noise"``
-    and ``"noise_occ"``."""
-    labels = draws.randint("labels", (x.shape[0],), 0, sde.N).to(x.device)
-    noise = draws.normal("noise", x.shape).to(x.device)
+    and ``"noise_occ"``.  ``rows`` = (first row, global batch): ``x`` holds
+    those rows of a global batch, and takes the same rows of the global
+    batch's draws (a data-parallel rank), drawing only those
+    (``Draws.rows``)."""
+    first, n = rows if rows is not None else (0, x.shape[0])
+    b = x.shape[0]
+    labels = draws.rows("randint", "labels", (n,), first, b, 0, sde.N).to(x.device)
+    noise = draws.rows("normal", "noise", (n,) + tuple(x.shape[1:]), first, b).to(x.device)
     perturbed = perturb(sde, x, labels, noise)
     noise_occ = perturbed_occ = None
     if x_occ is not None:
-        noise_occ = draws.normal("noise_occ", x_occ.shape).to(x.device)
+        noise_occ = draws.rows("normal", "noise_occ", (n,) + tuple(x_occ.shape[1:]), first, b).to(x.device)
         perturbed_occ = perturb(sde, x_occ, labels, noise_occ)
     return labels, noise, perturbed, noise_occ, perturbed_occ
 
@@ -49,11 +54,13 @@ def masked_score_mse(score, score_occ, noise, noise_occ, feature_mask, occ_mask,
 
 
 def ddpm_loss(sde: VPSDE, model, draws, batch: dict, feature_mask=None, occ_mask=None,
-              pred_type: str = "noise"):
+              pred_type: str = "noise", rows: Optional[tuple] = None):
     """The loss of one batch ``{"grid": (B, C, D, D, D), "occgrid": (B, 1,
-    2D, 2D, 2D)}``; the model runs in whatever train / eval mode it is in."""
+    2D, 2D, 2D)}``; the model runs in whatever train / eval mode it is in.
+    ``rows``: as :func:`sample_perturbation`'s (the loss normalizes by the
+    local batch)."""
     x, x_occ = batch["grid"], batch.get("occgrid")
-    labels, noise, perturbed, noise_occ, perturbed_occ = sample_perturbation(sde, draws, x, x_occ)
+    labels, noise, perturbed, noise_occ, perturbed_occ = sample_perturbation(sde, draws, x, x_occ, rows)
     pred, pred_occ = model(perturbed, perturbed_occ, labels, feature_mask=feature_mask, occ_mask=occ_mask)
     pred = pred.float()
     if pred_type == "noise":

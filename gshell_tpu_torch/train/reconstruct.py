@@ -18,7 +18,13 @@ and the JAX code names it the cause of its black renders; no config or
 flag selects it, only the Python API.
 
 The main path runs f32 matrix products in full precision: TF32 is switched
-off for cuBLAS and cuDNN when a :class:`Reconstructor` is built."""
+off for cuBLAS and cuDNN when a :class:`Reconstructor` is built.
+
+``spatial=(n_view, n_band)`` renders the views in (view, band) cells over
+the ranks of a process group (``parallel/spatial.py``; JAX's
+``Reconstructor(mesh=…)``): every rank computes the replicated work, the
+gradients are averaged across ranks before the non-finite zeroing and the
+reference's tweaks, and the metrics are averaged across ranks."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,6 +37,8 @@ import torch
 from ..geometry.flexi_geometry import GShellFlexiGeometry
 from ..ops.image_loss import create_loss
 from ..ops.shade import make_sdf_visibility, make_shadow_field
+from ..parallel.sharding import average_gradients, broadcast_parameters, default_group, mean_metrics
+from ..parallel.spatial import CellGrid
 from ..render.light import update_pdf
 from ..render.material import MLPTexture3DConfig, init_mlp_texture
 from ..render.render import RenderFlags
@@ -87,7 +95,13 @@ class Reconstructor:
     (``flexi_geometry.GShellFlexiGeometry``) geometry."""
 
     def __init__(self, geometry, mat_cfg: MLPTexture3DConfig,
-                 flags: RenderFlags, tcfg: TrainConfig = TrainConfig()):
+                 flags: RenderFlags, tcfg: TrainConfig = TrainConfig(), spatial: Optional[tuple] = None,
+                 group=None):
+        """``spatial``: (n_view, n_band) cells; the batch must be n_view and
+        the image height divisible by n_band.  ``group``: the process group
+        the cells split over (default: the default group when
+        ``torch.distributed`` is initialized, else one process renders
+        every cell)."""
         # full-f32 products on the main path (cuBLAS and cuDNN default to TF32
         # in places); the JAX reference computes in f32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -109,6 +123,16 @@ class Reconstructor:
                 "like the tets one, but JAX's FlexiCubes sdf_lattice already negates it, so the trainer's "
                 "second negation would mark the exterior solid, and JAX's FlexiCubes trainer cannot run "
                 "to be compared; use the default 'mesh_splat'")
+        self.spatial = None
+        if spatial is not None:
+            n_view, n_band = spatial
+            if tcfg.batch != n_view:
+                raise ValueError(f"spatial {spatial}: the batch ({tcfg.batch}) must equal n_view")
+            if flags.resolution[0] % n_band:
+                raise ValueError(f"spatial {spatial}: {flags.resolution[0]} rows do not split into {n_band} bands")
+            self.spatial = CellGrid(n_view, n_band, group if group is not None else default_group())
+        self.group = self.spatial.group if self.spatial is not None else None
+        self.allreduce_seconds = 0.0  # the last step's gradient average
         g = geometry.cfg
         half = 0.5 * g.scale * np.asarray(g.boxscale, np.float64)
         self.aabb_min, self.aabb_size = tuple((-half).tolist()), tuple((2 * half).tolist())
@@ -134,6 +158,7 @@ class Reconstructor:
                       else leaf(params_geo[k]) for k in GEO_LR_SCALE if k in params_geo}
         params_mat = {"tables": leaf(params_mat["tables"]), "mlp": [leaf(w) for w in params_mat["mlp"]]}
         light_base = leaf(light_base)
+        broadcast_parameters(_leaves((params_geo, params_mat, [light_base])), self.group)
         t = self.tcfg
         msdf_scale = MSDF_MLP_LR_SCALE if self.geo.cfg.use_msdf_mlp else 1.0
         lr = lambda k: t.lr_pos * (msdf_scale if k.startswith("msdf") else GEO_LR_SCALE[k])
@@ -157,16 +182,17 @@ class Reconstructor:
             draws, state.params_geo, state.params_mat, self.mat_cfg, light, target, it,
             self.flags, self.image_loss_fn, use_shadows=t.use_shadows,
             shadow_scale=shadow_scale, denoiser_sigma=denoiser_sigma, shadow_ko=t.shadow_ko,
-            visibility=visibility,
+            visibility=visibility, spatial=self.spatial,
         )
         total = img_loss + depth_loss + reg_loss
         for opt in state.optimizers:
             opt.zero_grad(set_to_none=True)
         total.backward()
+        groups = (state.params_geo, state.params_mat, [state.light_base])
+        self.allreduce_seconds = average_gradients(_leaves(groups), self.group)
 
         # Non-finite gradients (grazing rays, degenerate silhouettes) are
         # zeroed instead of poisoning the Adam moments, and counted.
-        groups = (state.params_geo, state.params_mat, [state.light_base])
         bad = torch.zeros((), dtype=torch.int64, device=self.device)
         with torch.no_grad():
             for p in (p for g in groups for p in _leaves(g)):
@@ -187,7 +213,7 @@ class Reconstructor:
         with torch.no_grad():
             state.light_base.clamp_(min=1e-4)
         state.step = it + 1
-        return {
+        return mean_metrics({
             "total": total.detach(),
             "img_loss": img_loss.detach(),
             "depth_loss": depth_loss.detach(),
@@ -195,7 +221,7 @@ class Reconstructor:
             "nonfinite_grads": bad,
             **sdf_norm,
             **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()},
-        }
+        }, self.group)
 
 
     def sdf_occluder(self, params_geo: dict):

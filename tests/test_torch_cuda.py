@@ -61,6 +61,31 @@ def test_stage_b_kernel_matches_plain(dev, res, n_faces, seed):
     assert torch.equal(kz[hit], pz[hit])
 
 
+@pytest.mark.parametrize("h, w, n_band, band", [(512, 512, 4, 0), (512, 512, 4, 2), (1024, 1024, 2, 1)])
+def test_stage_b_kernel_matches_plain_on_a_band(dev, h, w, n_band, band):
+    """A band of the banded render (``parallel.spatial``): rows
+    [b·h/n − 16, (b+1)·h/n + 16) of an h×w view through ``band_mvp``, a tile
+    grid of other height than width (160 × 512 and 544 × 1024)."""
+    from gshell_tpu_torch.parallel.spatial import band_mvp
+
+    g = torch.Generator().manual_seed(band)
+    verts = torch.rand((3000, 3), generator=g) * 1.2 - 0.6
+    faces = torch.randint(0, 3000, (6000, 3), generator=g).to(dev)
+    mvp = perspective(math.radians(45.0)) @ lookat([0.0, 0.0, 2.2], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    hb = h // n_band + 32
+    v_clip = xfm_points(verts, band_mvp(mvp, band * (h // n_band) - 16, hb, h)).to(dev)
+    bins = rz.bin_pairs(v_clip, faces, (hb, w))
+    assert (bins.ty_n, bins.tx_n) == (hb // rz.TILE, w // rz.TILE)
+    args = (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
+    kz, kid = rz.rasterize_stage_b(*args)
+    torch.cuda.synchronize()
+    pz, pid = rz.stage_b_plain(*args)
+    hit = pid >= 0
+    assert int(hit.sum()) > 0
+    assert torch.equal(kid, pid)
+    assert torch.equal(kz[hit], pz[hit])
+
+
 @pytest.mark.parametrize("res, seed", [(64, 0), (512, 1)])
 def test_stage_b_kernel_merges_crowded_tiles_exactly(dev, res, seed):
     """One tile with several sub-segments, exact depth ties across them
@@ -107,7 +132,7 @@ def _stencil_inputs(h, w, seed, device):
 
 
 @pytest.mark.parametrize("channels", [3, 6])
-@pytest.mark.parametrize("h, w, r", [(37, 53, 5), (512, 512, 11)])
+@pytest.mark.parametrize("h, w, r", [(37, 53, 5), (512, 512, 11), (160, 512, 11), (544, 1024, 11)])
 @pytest.mark.parametrize("from_tap", [False, True])
 def test_bilateral_kernel_matches_plain(dev, h, w, r, from_tap, channels):
     col, nrm, zdz = _stencil_inputs(h, w, 3, dev)

@@ -60,6 +60,21 @@ def test_port_and_chip_smoke_import_nothing_of_jax_or_gshell_tpu():
     assert int(out.stdout.split()[1]) >= 20  # every module was walked
 
 
+@pytest.mark.parametrize("module", ["gshell_tpu_torch.parallel.sharding", "gshell_tpu_torch.parallel.spatial",
+                                    "gshell_tpu_torch.data.multihost"])
+def test_distributed_modules_import_nothing_of_jax_or_gshell_tpu(module):
+    """The port's process-group modules, each alone under the guard."""
+    code = _GUARDED_IMPORT.split("import gshell_tpu_torch")[0] + (
+        f"import {module}\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'gshell_tpu'))\n"
+        "assert not bad, bad\nprint('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok", out.stdout
+
+
 def test_guard_catches_an_import_of_the_jax_package():
     """The finder itself works: importing the JAX package under it fails."""
     code = _GUARDED_IMPORT.split("import gshell_tpu_torch")[0] + "import gshell_tpu.geometry.tet_grid\n"

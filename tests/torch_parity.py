@@ -112,9 +112,20 @@ def view_key_for(key, rest: str):
     }[top]
 
 
-def train_source(key, batch: int):
+def band_key_for(view_key, rest: str, n_band: int):
+    """(key, name) of a draw under a view's key: a banded render's cell
+    draws under ``band{b}/`` from the view key's ``b``-th of ``n_band``
+    splits, as JAX's banded ticks split it."""
+    if rest.startswith("band"):
+        band, _, rest = rest.partition("/")
+        return jax.random.split(view_key, n_band)[int(band[len("band"):])], rest
+    return view_key, rest
+
+
+def train_source(key, batch: int, n_band: int = 1):
     """Replay source for ``Reconstructor.train_step(state, draws, ...)``
-    called with JAX train-step ``key`` (the key tree of ``GShellGeometry.tick``)."""
+    called with JAX train-step ``key`` (the key tree of ``GShellGeometry.tick``;
+    ``n_band`` bands under a banded render)."""
     keys = jax.random.split(key, batch + 3)
 
     def source(kind, name, shape, lo, hi):
@@ -124,13 +135,13 @@ def train_source(key, batch: int):
             k_face, k_uv = jax.random.split(k)
             k = k_face if rest == "face" else k_uv
         else:  # view{b}/...
-            k = view_key_for(keys[int(top[len("view"):])], rest)
+            k = view_key_for(*band_key_for(keys[int(top[len("view"):])], rest, n_band))
         return _draw(kind, k, shape, lo, hi)
 
     return source
 
 
-def flexi_train_source(key, batch: int, splat_key):
+def flexi_train_source(key, batch: int, splat_key, n_band: int = 1):
     """Replay source for the FlexiCubes tick called with JAX tick ``key``
     (``GShellFlexiGeometry.tick`` splits it into ``batch`` view keys and an
     eikonal key) and ``splat_key``, the key a test gave the JAX
@@ -143,7 +154,7 @@ def flexi_train_source(key, batch: int, splat_key):
             k_face, k_uv = jax.random.split(splat_key if top == "splat" else keys[batch])
             k = k_face if rest == "face" else k_uv
         else:  # view{b}/...
-            k = view_key_for(keys[int(top[len("view"):])], rest)
+            k = view_key_for(*band_key_for(keys[int(top[len("view"):])], rest, n_band))
         return _draw(kind, k, shape, lo, hi)
 
     return source
