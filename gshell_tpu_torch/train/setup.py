@@ -38,6 +38,12 @@ def launches_since(start: dict) -> dict:
     return {k: now[k] - start[k] for k in now}
 
 
+def sync(device) -> None:
+    """Wait for ``device``'s queued work (a no-op off the card)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def parse_bool(text) -> bool:
     """``1/true/yes/on`` → True, ``0/false/no/off`` → False (any case);
     anything else raises."""

@@ -48,7 +48,7 @@ from .render.mesh import load_obj, save_obj, unit_size
 from .render.render import render_mesh, render_uv
 from .train.reconstruct import load_state, save_state
 from .train.setup import (add_bool, gt_light_material, kernel_launches, launches_since,
-                          reconstructor_from_flags, resolve_device)
+                          reconstructor_from_flags, resolve_device, sync)
 from .utils.config import load_flags
 from .utils.image import save_image
 from .utils.rng import TorchDraws
@@ -77,11 +77,6 @@ def build_parser() -> argparse.ArgumentParser:
              help="render a [render | reference] image at each save_interval (default 1)")
     add_bool(p, "--resume", help="continue from OUT_DIR/state.pt if it exists")
     return p
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def make_dataset(flags, rec, device):
@@ -143,11 +138,11 @@ def bake_texture(rec, state, out_dir: str, res: int) -> dict:
     uvs, uv_idx = unwrap(verts.cpu().numpy(), faces_np)
     t_unwrap = time.time() - t0
     faces = torch.as_tensor(faces_np, device=dev)
-    _sync(dev)
+    sync(dev)
     t0 = time.time()
     mask, kd, ks = render_uv(torch.as_tensor(uvs, device=dev), torch.as_tensor(uv_idx, device=dev).long(),
                              verts, faces, (res, res), state.params_mat, rec.mat_cfg)
-    _sync(dev)
+    sync(dev)
     t_bake = time.time() - t0
     save_image(os.path.join(out_dir, "texture_kd.png"), kd.cpu().numpy())
     save_image(os.path.join(out_dir, "texture_ks.png"), ks.cpu().numpy())
@@ -213,7 +208,7 @@ def main(argv=None) -> dict:
 
     c0, t0 = kernel_launches(), time.time()
     ds = make_dataset(flags, rec, device)
-    _sync(device)
+    sync(device)
     summary = {"gt_seconds": time.time() - t0, "gt_views": len(ds), "launches": {"dataset": launches_since(c0)}}
     if getattr(ds, "splat_coverage", None):
         summary["gt_splat"] = ds.splat_coverage
@@ -258,7 +253,7 @@ def main(argv=None) -> dict:
             save_mesh(rec, state, flags.out_dir, it)
             if args.snapshot_images:
                 save_snapshot_image(rec, state, target, flags.out_dir, it)
-    _sync(device)
+    sync(device)
     summary["launches"]["train"] = launches_since(c0)
 
     summary["final_faces"] = save_mesh(rec, state, flags.out_dir, flags.iter)
