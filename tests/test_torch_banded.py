@@ -17,7 +17,10 @@ tet grid 16, two views, n_samples 2; ``tests/torch_banded.py``).
   ``tests/test_parallel.py:266-284``).
 * Both ticks in local mode against JAX's ``tick(spatial_mesh=…)``: every
   loss term to ``LOSS_RTOL`` and each gradient group by cosine and relative
-  norm difference (``LIMITS``, about 1.5x the readings).
+  norm difference (``LIMITS``, about 1.5x the readings, taken on an earlier
+  test host, its CPU model not recorded; the groups of ``ENVELOPED``
+  at the looser of that and 3x the port's round-off envelope, never above
+  10x it).
 * Both train steps on two gloo ranks (``tests/torch_dist.py``; the tets
   extraction sharded over them) against one process holding all four
   cells: the losses to rtol 1e-6 (they read equal), the gradients the
@@ -58,7 +61,8 @@ from gshell_tpu_torch.utils.rng import ReplayDraws
 from torch_banded import BATCH, FLAGS, GEO, HASH, MAT, RES, STEP, banded_reconstructor, initial_state, \
     reconstructor, step_record, target
 from torch_dist import run_ranks
-from torch_parity import _draw, band_key_for, cosine_and_norm, flexi_train_source, n, t, train_source, view_key_for
+from torch_parity import (_draw, assert_cosine_and_norm, band_key_for, flexi_train_source, jittered_runs, n, t,
+                          train_source, view_key_for)
 
 torch.set_num_threads(1)
 NV, NB = 2, 2
@@ -71,6 +75,15 @@ ADAM_EPS = 1e-8
 # least 97 % (readings 0.6-2.3 %) with a mean |error| of at most 3e-4
 # (readings to 1.9e-4).
 EXACT_BUFFERS = ("kd", "ks", "kd_grad", "ks_grad", "mask", "geometric_normal", "invdepth", "msdf_image")
+# The groups that on an "AMD EPYC" host (``lscpu``) read above their limits:
+# held at the looser of the limit and 3× the port's round-off envelope,
+# never above 10× the limit (``torch_parity.cosine_and_norm_limits``).  One
+# ulp of round-off puts 3.2 % of the tets tick's image elements on other
+# branches (shadows, the denoiser's spread; ``torch_parity.branch_mask``),
+# too many to leave out of the loss.  Readings there: tets deform .99622
+# 5.11e-3, tables .99971 5.00e-3; flexicubes deform .9999882 2.11e-4, sdf
+# .999951 8.01e-4, light .99867 1.22e-4.
+ENVELOPED = {"tets": ("deform", "tables"), "flexicubes": ("deform", "sdf", "light")}
 # Loss terms, relative error (readings: tets 7.7e-5, FlexiCubes 1.3e-5), and
 # per gradient group (cosine >=, relative norm difference <=), about 1.5x off
 # the readings:
@@ -240,38 +253,43 @@ def ticked(request):
                                         spatial_mesh=_jax_mesh(), **extra)
         return img + depth + reg, (img, depth, reg, aux)
 
+    rec = reconstructor(kind, spatial=(NV, NB))
+    source = train_source(key, BATCH, NB) if kind == "tets" else flexi_train_source(key, BATCH, None, NB)
+
+    def port():
+        st = _port_state(rec, params, mat_p, light_np)
+        img, depth, reg, aux = rec.geo.tick(ReplayDraws(source), st.params_geo, st.params_mat, rec.mat_cfg,
+                                            update_pdf(st.light_base), target(), STEP, rec.flags, rec.image_loss_fn,
+                                            use_shadows=kind == "tets", shadow_scale=1.0, denoiser_sigma=2.0,
+                                            shadow_ko=4, spatial=rec.spatial)
+        (img + depth + reg).backward()
+        m_t = {"total": img + depth + reg, "img_loss": img, "depth_loss": depth, "reg_loss": reg, **aux}
+        return {k: n(v) for k, v in m_t.items()}, {k: n(v) for k, v in _grads(st).items()}
+
     (total, (img, depth, reg, aux)), grads = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1, 2), has_aux=True))(
         params, mat_p, jnp.asarray(light_np))
     m_j = {"total": total, "img_loss": img, "depth_loss": depth, "reg_loss": reg, **aux}
-    rec = reconstructor(kind, spatial=(NV, NB))
-    st = _port_state(rec, params, mat_p, light_np)
-    source = train_source(key, BATCH, NB) if kind == "tets" else flexi_train_source(key, BATCH, None, NB)
-    img, depth, reg, aux = rec.geo.tick(ReplayDraws(source), st.params_geo, st.params_mat, rec.mat_cfg,
-                                        update_pdf(st.light_base), target(), STEP, rec.flags, rec.image_loss_fn,
-                                        use_shadows=kind == "tets", shadow_scale=1.0, denoiser_sigma=2.0,
-                                        shadow_ko=4, spatial=rec.spatial)
-    (img + depth + reg).backward()
-    m_t = {"total": img + depth + reg, "img_loss": img, "depth_loss": depth, "reg_loss": reg, **aux}
-    return kind, m_j, grads, m_t, st
+    m_t, g_t = port()
+    return kind, m_j, grads, m_t, g_t, jittered_runs(port)
 
 
 def test_banded_tick_losses_match_jax(ticked):
-    kind, m_j, _, m_t, _ = ticked
+    kind, m_j, _, m_t, _, _ = ticked
     for k in ("n_faces", "raster_dropped", "px_dropped"):
         assert int(m_t[k]) == int(m_j[k]), k
     assert int(m_t["n_faces"]) > 0
     for k in ("total", "img_loss", "reg_loss"):
-        got, want = float(m_t[k].detach()), float(m_j[k])
+        got, want = float(m_t[k]), float(m_j[k])
         assert abs(got - want) <= LOSS_RTOL[kind] * abs(want), (kind, k, got, want)
 
 
 def test_banded_tick_gradients_match_jax(ticked):
-    kind, _, grads_j, _, st = ticked
-    gt, gj = _grads(st), _grads_jax(grads_j)
+    kind, _, grads_j, _, gt, jittered = ticked
+    gj = _grads_jax(grads_j)
     for g in gt:
-        assert np.abs(n(gt[g])).max() > 0, f"{g}: zero gradient"
-        cos, dnorm = cosine_and_norm(gt[g], gj[g])
-        assert cos >= LIMITS[kind][g][0] and dnorm <= LIMITS[kind][g][1], (kind, g, cos, dnorm)
+        assert np.abs(gt[g]).max() > 0, f"{g}: zero gradient"
+        assert_cosine_and_norm(gt[g], gj[g], [j[g] for _, j in jittered] if g in ENVELOPED.get(kind, ()) else [],
+                               LIMITS[kind][g], what=f"{kind} {g}")
 
 
 # ---------------------------------------------------------------- two ranks

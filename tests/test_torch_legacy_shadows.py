@@ -103,6 +103,15 @@ LEGACY_LIMITS = {
               "tables": (0.999988, 1.2e-3), "mlp": (0.999991, 2.4e-3), "light": (0.9975, 1.65e-4)},
 }
 LEGACY_UPDATE_AGREEMENT = 0.9965
+# On an "AMD EPYC" host (``lscpu``) the field step's pixel (17, 23) reads a
+# blue of −2.9e-5 in the port and above 0 in JAX: the log-sRGB loss clamps
+# the image at 0, so only JAX's side took a gradient there, and the light
+# group read a cosine of 0.785.  That step holds both sides to the same
+# branches (``torch_train_step.step_both``: the elements within 3 round-off
+# envelopes of the clamp, and the pixels one ulp moves by more than 1e-3,
+# leave both image losses); then every group reads inside its limit (light
+# .99862 2.1e-6).
+LEGACY_SAME_BRANCHES = ("field",)
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +123,8 @@ def sdf_net():
 def legacy(request, sdf_net):
     geo_j = ts.jax_geometry(True, False)
     return request.param, ts.step_both(geo_j, ts.jax_params(geo_j, sdf_net),
-                                       {"shadow_source": "sdf", "shadow_method": request.param})
+                                       {"shadow_source": "sdf", "shadow_method": request.param},
+                                       same_branches=request.param in LEGACY_SAME_BRANCHES)
 
 
 def test_legacy_source_step_matches_jax(legacy):
@@ -125,9 +135,7 @@ def test_legacy_source_step_matches_jax(legacy):
     assert int(m_t["n_faces"]) > 0 and "splat_cells" not in m_t  # no cut-mesh splat under this source
     for k in ts.TERMS:
         assert_close(m_t[k], m_j[k], rtol=LEGACY_LOSS_RTOL[method], atol=1e-7, what=k)
-    for k, (cos, dnorm) in ts.readings(s).items():
-        lo_cos, hi_norm = LEGACY_LIMITS[method][k.replace("_net", "")]
-        assert cos >= lo_cos and dnorm <= hi_norm, (k, cos, dnorm)
+    ts.assert_gradients(s, LEGACY_LIMITS[method])
     lr_pos = TrainConfig().lr_pos
     for k in s["before"]:
         share = ts.update_agreement(s, k, lr_pos * (1e-2 if k == "sdf_net" else 1.0))

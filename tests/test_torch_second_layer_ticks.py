@@ -12,10 +12,25 @@ second layer holds the inside; ``convert`` carries it into the port.  The
 port peels with stage B's two layers over the tile segments, JAX with its
 scan.  Counts (faces, raster and pixel drops) are compared exactly, each
 loss term to a relative limit, each gradient group by cosine and relative
-norm difference, at limits about 1.5× the CPU readings (``LIMITS``), as
+norm difference, at limits about 1.5× the CPU readings (``LIMITS``, taken on
+an earlier test host, its CPU model not recorded), as
 ``tests/test_torch_flexi_tick.py`` does: the two extractions differ by
 round-off, a few Monte-Carlo samples flip on it, the denoiser spreads each
-flip, and the undenoised second layer keeps them.
+flip, and the undenoised second layer keeps them.  The groups that read
+above their limits on an "AMD EPYC" host are named in ``ENVELOPED`` and
+``ROUND_OFF_ROWS``.
+
+The FlexiCubes mSDF gradient is held off the lattice entries that feed a
+round-off cut (``_round_off_cuts``): JAX's open-surface regulariser reads
+the cut point of every face edge whose two mSDF values differ by more than
+1e-8, and where they are equal up to round-off the cut's coefficients are
+1/round-off.  The cut plane gives lattice vertices 1005–1007 the same mSDF
+(0.572); the port's value at watertight vertex 868 comes out an ulp below
+JAX's (0.5763488 against 0.57634884), so the port cuts the edge to vertex
+864 and JAX, whose two values are equal, does not.  The port's gradient
+there read ±0.61 against JAX's 5e-4 (cosine 0.228 over the group); off
+the five lattice entries such cuts reach, the group reads cosine
+0.9999999991 and relative norm 9.8e-7 on an AMD EPYC host.
 """
 import jax
 import jax.numpy as jnp
@@ -45,7 +60,8 @@ from gshell_tpu_torch.render.material import MLPTexture3DConfig
 from gshell_tpu_torch.render.render import RenderFlags
 from gshell_tpu_torch.train.reconstruct import Reconstructor, TrainConfig
 from gshell_tpu_torch.utils.rng import ReplayDraws
-from torch_parity import assert_close, cosine_and_norm, flexi_train_source, n, t, train_source
+from torch_parity import (assert_close, assert_cosine_and_norm, assert_rows_off_round_off, flexi_train_source,
+                          jittered_runs, n, t, train_source)
 
 torch.set_num_threads(1)
 RES, BATCH, STEP = 32, 2, 1000
@@ -57,6 +73,14 @@ GEO = {"tets": dict(grid_res=12, n_eikonal_samples=512, total_iters=5000, **SUPE
 MAT = dict(channels=6, internal_dims=16, hidden=2, min_max=default_kd_ks_min_max())
 FLAGS = dict(resolution=(RES, RES), n_samples=2, jitter_tap_frac=0.25, mc_block=2, light_bf16=True,
              use_denoiser=True)
+# The tets tick's groups that on an "AMD EPYC" host (``lscpu``) read above
+# their limits (the module docstring): ``ENVELOPED`` at the looser of the
+# limit and 3× the port's round-off envelope, never above 10× the limit;
+# ``ROUND_OFF_ROWS`` (per light texel) at the limit off the texels that
+# carry the envelope.  Readings there: mlp .999926 6.04e-3, light .9925
+# 1.40e-3 (off 490 of 262,144 texels 4.0e-5).
+ENVELOPED = {"tets": ("mlp",)}
+ROUND_OFF_ROWS = {"tets": ("light",)}
 TERMS = ("total", "img_loss", "depth_loss", "reg_loss")
 GROUPS = {"tets": ("deform", "msdf", "sdf_net", "tables", "mlp", "light"),
           "flexicubes": ("deform", "msdf", "sdf_net", "cube_weights", "tables", "mlp", "light")}
@@ -113,22 +137,25 @@ def _cut(params, verts):
     return {**params, "msdf": jnp.asarray((0.25 - verts[:, 1] + 0.1 * verts[:, 0]).astype(np.float32))}
 
 
-def _jax_tick(kind):
+def _jax_state(kind):
+    """JAX's geometry for ``kind`` and its tick's state."""
     mat = JMatConfig(hash=JHashGridConfig(**HASH), **MAT)
-    flags = JRenderFlags(raster_backend="xla", max_per_tile=4096, **FLAGS)
     if kind == "tets":
         geo = JGShellGeometry(JGeometryConfig(mlp=JMLPConfig(**MLP), view_batch_mode="map_remat", **GEO[kind]))
         params = geo.pretrain_sdf(geo.init_params(jax.random.PRNGKey(0)), steps=300)
         params = _cut(params, np.asarray(geo.verts))
-        vis = "mesh_splat"
     else:
         geo = JGShellFlexiGeometry(JFlexiGeometryConfig(mlp=JMLPConfig(**MLP), **GEO[kind]))
-        params = _cut(geo.pretrain_sdf(geo.init_params(jax.random.PRNGKey(0)), steps=300), np.asarray(geo.verts))
-        vis = None
-    state = {"geo": params, "mat": init_mlp_texture(jax.random.PRNGKey(1), mat), "light": jnp.asarray(_smooth_light())}
+        params = _cut(*_flexi_pretrained())
+    return geo, {"geo": params, "mat": init_mlp_texture(jax.random.PRNGKey(1), mat),
+                 "light": jnp.asarray(_smooth_light())}
+
+
+def _jax_tick(kind, geo, state, key):
+    mat = JMatConfig(hash=JHashGridConfig(**HASH), **MAT)
+    flags = JRenderFlags(raster_backend="xla", max_per_tile=4096, **FLAGS)
     target = {k: jnp.asarray(v) for k, v in _target().items()}
-    key = jax.random.PRNGKey(5)
-    extra = {"shadow_ko": 16} if kind == "tets" else {}
+    vis, extra = ("mesh_splat", {"shadow_ko": 16}) if kind == "tets" else (None, {})
 
     def loss_fn(pg, pm, lb):
         img, depth, reg, aux = geo.tick(key, pg, pm, mat, j_update_pdf(lb), target, STEP, flags,
@@ -138,19 +165,22 @@ def _jax_tick(kind):
 
     (total, (img, depth, reg, aux)), grads = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1, 2), has_aux=True))(
         state["geo"], state["mat"], state["light"])
-    return {"total": total, "img_loss": img, "depth_loss": depth, "reg_loss": reg, **aux}, grads, state, key
+    return {"total": total, "img_loss": img, "depth_loss": depth, "reg_loss": reg, **aux}, grads
 
 
-def _port_tick(kind, state_j, key):
+def _port_rec(kind):
     mlp = MLPConfig(**MLP)
     if kind == "tets":
         geo = GShellGeometry(GeometryConfig(mlp=mlp, view_batch_mode="map_remat", **GEO[kind]), "cpu")
-        source = train_source(key, BATCH)
     else:
         geo = GShellFlexiGeometry(FlexiGeometryConfig(mlp=mlp, **GEO[kind]), "cpu")
-        source = flexi_train_source(key, BATCH, None)
-    rec = Reconstructor(geo, MLPTexture3DConfig(hash=HashGridConfig(**HASH), **MAT), RenderFlags(**FLAGS),
-                        TrainConfig(batch=BATCH))
+    return Reconstructor(geo, MLPTexture3DConfig(hash=HashGridConfig(**HASH), **MAT), RenderFlags(**FLAGS),
+                         TrainConfig(batch=BATCH))
+
+
+def _port_tick(kind, rec, state_j, key):
+    """The port's tick → (metrics as numpy, gradient groups as numpy)."""
+    source = train_source(key, BATCH) if kind == "tets" else flexi_train_source(key, BATCH, None)
     np_tree = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
     st = convert.state_from_jax(rec, np_tree(state_j["geo"]), np_tree(state_j["mat"]), np.asarray(state_j["light"]),
                                 step=STEP)
@@ -159,14 +189,107 @@ def _port_tick(kind, state_j, key):
                                         rec.flags, rec.image_loss_fn, use_shadows=kind == "tets", shadow_scale=1.0,
                                         denoiser_sigma=2.0)
     (img + depth + reg).backward()
-    return {"total": img + depth + reg, "img_loss": img, "depth_loss": depth, "reg_loss": reg, **aux}, st
+    m_t = {"total": img + depth + reg, "img_loss": img, "depth_loss": depth, "reg_loss": reg, **aux}
+    return {k: n(v) for k, v in m_t.items()}, {g: n(v).copy() for g, v in _grads_port(st).items()}
+
+
+# Two mSDF values of a face edge equal to within this share of their size are
+# equal up to round-off: each is a β-weighted mean of a cube's α-weighted
+# edge crossings (or of four of them, at a quad centre), a few tens of
+# rounded operations away from the lattice values.
+CUT_ROUNDOFF = 64 * float(np.finfo(np.float32).eps)
+
+
+def _round_off_cuts(msdf_wt, faces_wt, valid):
+    """(F, 3) face edges (u, w) of the watertight mesh whose mSDF cut is
+    round-off: |ν_u − ν_w| above the extractor's 1e-8 floor, so the cut
+    point is computed, but within ``CUT_ROUNDOFF`` of equal, so its
+    coefficients −ν_w/(ν_u − ν_w) and ν_u/(ν_u − ν_w) are round-off."""
+    u, w = faces_wt, faces_wt[:, [1, 2, 0]]
+    mu, mw = msdf_wt[u].astype(np.float64), msdf_wt[w].astype(np.float64)
+    den = np.abs(mu - mw)
+    return valid[:, None] & (den > 1e-8) & (den <= CUT_ROUNDOFF * np.maximum(np.abs(mu), np.abs(mw))), u, w
+
+
+def _lattice_of_round_off_cuts(mesh, vjp):
+    """Lattice mSDF entries that reach a round-off cut's ends."""
+    nwt = mesh.n_verts_watertight
+    bad, u, w = _round_off_cuts(n(mesh.msdf)[:nwt], n(mesh.faces_wt), n(mesh.face_wt_valid))
+    cot = np.zeros(nwt, np.float32)
+    cot[np.concatenate([u[bad], w[bad]])] = 1.0
+    return np.asarray(vjp(cot)) != 0
+
+
+def _flexi_round_off_entries(state_j):
+    """The lattice mSDF entries of the FlexiCubes tick's extraction that feed
+    a round-off cut → (JAX's, the port's)."""
+    geo_j = JGShellFlexiGeometry(JFlexiGeometryConfig(mlp=JMLPConfig(**MLP), **GEO["flexicubes"]))
+    mesh_j, vjp_j = jax.vjp(lambda m: geo_j.get_mesh({**state_j["geo"], "msdf": m}), state_j["geo"]["msdf"])
+    nwt = mesh_j.n_verts_watertight
+    zero = jax.tree_util.tree_map(jnp.zeros_like, mesh_j)
+    bad_j = _lattice_of_round_off_cuts(
+        mesh_j, lambda c: vjp_j(zero._replace(msdf=zero.msdf.at[:nwt].set(c)))[0])
+    geo_t = GShellFlexiGeometry(FlexiGeometryConfig(mlp=MLPConfig(**MLP), **GEO["flexicubes"]), "cpu")
+    params = convert.params_geo_from_jax(jax.tree_util.tree_map(np.asarray, state_j["geo"]), "cpu")
+    params["msdf"].requires_grad_(True)
+    mesh_t = geo_t.extract(params)[0]
+    bad_t = _lattice_of_round_off_cuts(
+        mesh_t, lambda c: torch.autograd.grad(mesh_t.msdf[:mesh_t.n_verts_watertight], params["msdf"], t(c))[0])
+    return bad_j, bad_t
+
+
+def test_flexi_cut_plane_makes_round_off_cuts():
+    """The JAX package's open-surface regulariser reads the cut point of
+    every face edge of the watertight FlexiCubes mesh whose mSDF values
+    differ by more than 1e-8, same sign or not.  The cut plane gives a row
+    of lattice vertices the same mSDF, and the dual vertices and quad
+    centres between them average it: the port's come out an ulp apart
+    (|ν_u − ν_w| = 6e-8, above the floor), JAX's here exactly equal, so the
+    port computes cut points whose coefficients −ν_w/(ν_u − ν_w) are
+    1/round-off and JAX does not (ROADMAP C.6).  On every such edge of the
+    port's, JAX's two values are equal up to the same round-off; the edges
+    reach a handful of lattice entries."""
+    params, verts = _flexi_pretrained()
+    state_j = {"geo": _cut(params, verts)}
+    geo_j = JGShellFlexiGeometry(JFlexiGeometryConfig(mlp=JMLPConfig(**MLP), **GEO["flexicubes"]))
+    mesh_j = geo_j.get_mesh(state_j["geo"])
+    geo_t = GShellFlexiGeometry(FlexiGeometryConfig(mlp=MLPConfig(**MLP), **GEO["flexicubes"]), "cpu")
+    mesh_t = geo_t.extract(convert.params_geo_from_jax(jax.tree_util.tree_map(np.asarray, state_j["geo"]), "cpu"))[0]
+    nwt = mesh_t.n_verts_watertight
+    np.testing.assert_array_equal(n(mesh_t.faces_wt), np.asarray(mesh_j.faces_wt))
+    bad, u, w = _round_off_cuts(n(mesh_t.msdf)[:nwt], n(mesh_t.faces_wt), n(mesh_t.face_wt_valid))
+    nu_j = np.asarray(mesh_j.msdf, np.float64)[:nwt]
+    assert bad.any()
+    gap_j = np.abs(nu_j[u[bad]] - nu_j[w[bad]])
+    assert (gap_j <= CUT_ROUNDOFF * np.maximum(np.abs(nu_j[u[bad]]), np.abs(nu_j[w[bad]]))).all(), gap_j.max()
+    bad_j, bad_t = _flexi_round_off_entries(state_j)
+    assert 0 < (bad_j | bad_t).sum() <= 0.01 * bad_t.size, (bad_j.sum(), bad_t.sum())
+
+
+def _flexi_pretrained():
+    """JAX's FlexiCubes geometry of the tick, its SDF pretrained → (params,
+    lattice vertices)."""
+    geo = JGShellFlexiGeometry(JFlexiGeometryConfig(mlp=JMLPConfig(**MLP), **GEO["flexicubes"]))
+    return geo.pretrain_sdf(geo.init_params(jax.random.PRNGKey(0)), steps=300), np.asarray(geo.verts)
 
 
 @pytest.fixture(scope="module", params=["tets", "flexicubes"])
 def ticked(request):
-    m_j, grads_j, state_j, key = _jax_tick(request.param)
-    m_t, st = _port_tick(request.param, state_j, key)
-    return request.param, m_j, grads_j, m_t, st
+    kind = request.param
+    geo_j, state_j = _jax_state(kind)
+    key = jax.random.PRNGKey(5)
+    rec = _port_rec(kind)
+    m_j, grads_j = _jax_tick(kind, geo_j, state_j, key)
+    port = lambda: _port_tick(kind, rec, state_j, key)
+    m_t, g_t = port()
+    jittered = [g for _, g in jittered_runs(port)] if kind in ENVELOPED or kind in ROUND_OFF_ROWS else []
+    if kind == "flexicubes":  # the entries of round-off cuts leave the mSDF group
+        keep = ~np.logical_or(*_flexi_round_off_entries(state_j))
+        assert keep.mean() > 0.99, keep.sum()
+        grads_j = (dict(grads_j[0], msdf=np.asarray(grads_j[0]["msdf"])[keep]),) + tuple(grads_j[1:])
+        for g in [g_t] + jittered:
+            g["msdf"] = g["msdf"][keep]
+    return kind, m_j, grads_j, m_t, g_t, jittered
 
 
 def _grads_port(st):
@@ -193,19 +316,23 @@ def _grads_jax(grads):
 
 
 def test_tick_with_second_layer_and_depth_losses_match_jax(ticked):
-    kind, m_j, _, m_t, _ = ticked
+    kind, m_j, _, m_t, _, _ = ticked
     for k in ("n_faces", "raster_dropped", "px_dropped"):
         assert int(m_t[k]) == int(m_j[k]), k
     assert int(m_t["n_faces"]) > 0 and int(m_t["raster_dropped"]) == 0
-    assert float(m_t["depth_loss"].detach()) > 0
+    assert float(m_t["depth_loss"]) > 0
     for k in TERMS:
         assert_close(m_t[k], m_j[k], rtol=LOSS_RTOL[kind], what=k)
 
 
 def test_tick_with_second_layer_and_depth_gradients_match_jax(ticked):
-    kind, _, grads_j, _, st = ticked
-    gt, gj = _grads_port(st), _grads_jax(grads_j)
+    kind, _, grads_j, _, gt, jittered = ticked
+    gj = _grads_jax(grads_j)
     for g in GROUPS[kind]:
-        assert np.abs(n(gt[g])).max() > 0, f"{g}: zero gradient"
-        cos, dnorm = cosine_and_norm(gt[g], gj[g])
-        assert cos >= LIMITS[kind][g][0] and dnorm <= LIMITS[kind][g][1], (kind, g, cos, dnorm)
+        assert np.abs(gt[g]).max() > 0, f"{g}: zero gradient"
+        if g in ROUND_OFF_ROWS.get(kind, ()):
+            assert_rows_off_round_off(gt[g].reshape(-1, 3), np.asarray(gj[g]).reshape(-1, 3),
+                                      [j[g].reshape(-1, 3) for j in jittered], LIMITS[kind][g], what=f"{kind} {g}")
+        else:
+            assert_cosine_and_norm(gt[g], gj[g], [j[g] for j in jittered] if g in ENVELOPED.get(kind, ()) else [],
+                                   LIMITS[kind][g], what=f"{kind} {g}")

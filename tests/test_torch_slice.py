@@ -27,7 +27,15 @@ rows of each group (the ten largest rows carry 72–97 % of it for deform and
 tables).  Each group is held to a cosine and a relative norm difference
 over all rows, and again over the 99 % of rows (vertices, table entries,
 texels; single weights) that differ least, at limits about 1.5× the
-readings in ``LIMITS``.  Given identical inputs the render matches the JAX
+readings in ``LIMITS``, taken on an earlier test host (its CPU model
+is not recorded).  On an "AMD EPYC" host the groups named in ``ENVELOPED``
+read above them (the raw scene's deform rows 5.1e-3 against 1e-3, its
+SDF MLP's cosine .99867 against .99945): at 64² with shadows one ulp of
+round-off puts 3.5 % of the image's elements on other branches (a pixel
+that moves by more than 1e-3, ``torch_parity.branch_mask``), too many to
+leave out of the loss, so those groups are held at the looser of their
+limit and 3× the port's round-off envelope, never above 10× the limit
+(``torch_parity.cosine_and_norm_limits``).  Given identical inputs the render matches the JAX
 function far more tightly; the component tests (raster, denoiser, hash
 grid, shading) hold those parts to rtol 1e-5 .. 1e-4.  The abs of the
 material taps follows ``jnp.abs``'s derivative at 0 (a fresh hash grid
@@ -63,7 +71,7 @@ from gshell_tpu_torch.render.material import MLPTexture3DConfig
 from gshell_tpu_torch.render.render import RenderFlags
 from gshell_tpu_torch.train.reconstruct import Reconstructor, TrainConfig, lr_factor
 from gshell_tpu_torch.utils.rng import ReplayDraws
-from torch_parity import assert_close, cosine_and_norm, n, t, train_source
+from torch_parity import assert_close, assert_cosine_and_norm, jittered_runs, n, t, train_source
 
 torch.set_num_threads(1)
 GRID, RES = 16, 64
@@ -95,6 +103,11 @@ LIMITS = {
         "mlp": (0.99993, 2.5e-3, 0.99995, 4.2e-3), "light": (0.974, 2.5e-3, 0.999999, 1e-5),
     },
 }
+# The groups that on an "AMD EPYC" host (``lscpu``) read above their limits
+# by more than the branches of the few samples the limits were set for: held
+# at the looser of the limit and 3× the port's round-off envelope, never
+# above 10× the limit (the module docstring).
+ENVELOPED = {"conditioned": ("light",), "raw": ("deform", "sdf_net", "tables", "mlp", "light")}
 # loss rtol per scene (largest reading of img_loss, reg_loss, total: 7.4e-5
 # conditioned, 3.2e-4 raw, both the reg_loss)
 LOSS_RTOL = {"conditioned": 1e-4, "raw": 5e-4}
@@ -176,7 +189,9 @@ def jax_side():
 
 
 def _step_both(rec_j, state_j, key):
-    """One train step on each side from the same state and draws."""
+    """One train step on each side from the same state and draws, and the
+    port's again under each of ``torch_parity.ENVELOPE_RUNS`` (``jittered``:
+    their gradients)."""
     target = _target()
     total_j, img_j, reg_j, aux_j, grads_j, nonfinite_j = _jax_loss_and_grads(
         rec_j, state_j, key, {k: jnp.asarray(v) for k, v in target.items()})
@@ -185,12 +200,17 @@ def _step_both(rec_j, state_j, key):
     mat_t = MLPTexture3DConfig(hash=HashGridConfig(**HASH), **MAT)
     rec_t = Reconstructor(geo_t, mat_t, RenderFlags(**FLAGS), TrainConfig(batch=1, use_shadows=True))
     np_tree = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
-    state_t = convert.state_from_jax(rec_t, np_tree(state_j.params_geo), np_tree(state_j.params_mat),
-                                     np.asarray(state_j.light_base), step=STEP)
-    metrics = rec_t.train_step(state_t, ReplayDraws(train_source(key, 1)),
-                               {k: t(v) for k, v in target.items()})
+
+    def port():
+        state_t = convert.state_from_jax(rec_t, np_tree(state_j.params_geo), np_tree(state_j.params_mat),
+                                         np.asarray(state_j.light_base), step=STEP)
+        metrics = rec_t.train_step(state_t, ReplayDraws(train_source(key, 1)), {k: t(v) for k, v in target.items()})
+        return metrics, {k: n(v) for k, v in _port_grads(state_t).items()}
+
+    metrics, grads_t = port()
     return dict(total_j=total_j, img_j=img_j, reg_j=reg_j, aux_j=aux_j, grads_j=grads_j,
-                nonfinite_j=nonfinite_j, state_t=state_t, metrics=metrics)
+                nonfinite_j=nonfinite_j, grads_t=grads_t, metrics=metrics,
+                jittered=[g for _, g in jittered_runs(port)])
 
 
 @pytest.fixture(scope="module")
@@ -255,17 +275,17 @@ def _jax_grads(grads):
 
 
 def _check_group(s, scene, group):
-    gt, gj = _port_grads(s["state_t"])[group], _jax_grads(s["grads_j"])[group]
-    assert np.abs(n(gt)).max() > 0, f"{group}: zero gradient"
-    cos_all, norm_all, cos_99, norm_99 = LIMITS[scene][group]
-    cos, dnorm = cosine_and_norm(gt, gj)
-    assert cos >= cos_all and dnorm <= norm_all, f"{group}: cosine {cos:.6f}, |norm diff| {dnorm:.2e}"
+    gt, gj = s["grads_t"][group], _jax_grads(s["grads_j"])[group]
+    assert np.abs(gt).max() > 0, f"{group}: zero gradient"
+    limits = LIMITS[scene][group]
+    jittered = [g[group] for g in s["jittered"]] if group in ENVELOPED[scene] else []
+    assert_cosine_and_norm(gt, gj, jittered, limits[:2], what=group)
     # off the few rows that a flip moves, the gradients agree tightly
     a, b = _rows(gt, group), _rows(gj, group)
     diff = np.linalg.norm(a - b, axis=1)
     keep = np.argsort(diff)[: len(diff) - len(diff) // 100]
-    cos, dnorm = cosine_and_norm(a[keep], b[keep])
-    assert cos >= cos_99 and dnorm <= norm_99, f"{group} (99 % of rows): cosine {cos:.7f}, |norm diff| {dnorm:.2e}"
+    assert_cosine_and_norm(a[keep], b[keep], [_rows(j, group)[keep] for j in jittered], limits[2:],
+                           what=f"{group} (99 % of rows)")
 
 
 @pytest.mark.parametrize("group", GROUPS)

@@ -7,7 +7,9 @@ Tolerances: texture sampling and its gradients to every mip level rtol
 same gathers and products); resizes and
 pooling rtol 1e-5 / atol 1e-6 (the same weights, summed in another order);
 the cubemap prefilters rtol 1e-4 / atol 1e-6 (N² dot products summed in
-another order); the BSDFs rtol 1e-5 / atol 1e-6, their gradients rtol 1e-4
+another order) from the same directions, and from each side's own within
+a bound on what the ulp between the directions does to the sharp GGX lobe
+(``test_cubemap_prefilters_match_jax``); the BSDFs rtol 1e-5 / atol 1e-6, their gradients rtol 1e-4
 / atol 1e-6 (a pow and a sqrt whose CPU implementations differ by an ulp);
 tangents rtol 1e-5 / atol 1e-6."""
 import jax
@@ -116,6 +118,20 @@ def test_pooling_grid_srgb_and_cubemap_lookup_match_jax():
                  what="latlong_to_cubemap")
 
 
+def test_light_tables_match_jax():
+    """The light's selection pdf and its CDFs against JAX's ``update_pdf``:
+    the same sine, sums and cumulative sums, rounded in another order and by
+    another math library, so to a few ulp (rtol 4e-6 / atol 1e-7 on the
+    pdf, atol 1e-6 on the CDFs, which run to 1).  A light sample whose
+    uniform lands within that of a CDF step picks the neighbouring texel."""
+    base = np.random.default_rng(5).uniform(0.25, 0.75, size=(64, 128, 3)).astype(np.float32)
+    got, want = tlt.update_pdf(t(base)), jlt.update_pdf(jnp.asarray(base))
+    assert_close(got.pdf, want.pdf, rtol=4e-6, atol=1e-7, what="pdf")
+    assert_close(got.rows, want.rows, rtol=0.0, atol=1e-6, what="rows")
+    assert_close(got.cols, want.cols, rtol=0.0, atol=1e-6, what="cols")
+    assert float(got.rows[-1]) == 1.0 and bool((got.cols[:, -1] == 1.0).all())
+
+
 @pytest.mark.parametrize("res", [(8, 16), (64, 128)], ids=["shrinks", "grows"])
 def test_generate_image_matches_jax(res):
     base = np.random.default_rng(5).uniform(0.25, 0.75, size=(32, 64, 3)).astype(np.float32)
@@ -125,26 +141,79 @@ def test_generate_image_matches_jax(res):
                  what="generate_image")
 
 
-def test_cubemap_prefilters_match_jax():
+def _prefilters(cube, g):
+    """The port's prefilters of ``cube``: diffuse, its gradient along ``g``,
+    specular at roughness 0.1 and 0.5, and the mip chain."""
+    ct = t(cube, True)
+    out = tcube.diffuse_cubemap(ct)
+    torch.sum(out * t(g)).backward()
+    return ([out, ct.grad] + [tcube.specular_cubemap(t(cube), r) for r in (0.1, 0.5)]
+            + tcube.specular_mip_chain(t(cube)))
+
+
+def _ggx_round_off(cube, roughness, dcos):
+    """First-order bound of what a change ``dcos`` of every texel-pair
+    cosine does to the GGX prefilter (premultiplied rgb and weight), in
+    float64: Σⱼ |∂wᵢⱼ/∂cᵢⱼ|·dcos·srcⱼ, with w = D(c)·c·Ωⱼ and
+    ∂log w/∂c = 4c(1 − α²)/d + 1/c, d = 1 − c²(1 − α²)."""
+    res = cube.shape[1]
+    dirs = np.asarray(jcube.cube_dirs(res), np.float64).reshape(-1, 3)
+    sa = np.asarray(jcube.texel_solid_angles(res), np.float64).reshape(-1)
+    a2 = max(roughness * roughness, 1e-3) ** 2
+    c = np.clip(dirs @ dirs.T, 0.0, 1.0)
+    d = (c * a2 - c) * c + 1.0
+    dw = (a2 / (d * d * np.pi)) * (4.0 * c * c * (1.0 - a2) / d + 1.0) * sa[None, :] * (c > 0)
+    src = np.concatenate([cube.reshape(-1, 3).astype(np.float64), np.ones((res * res * 6, 1))], -1)
+    return (dw @ src * dcos).reshape(6, res, res, 4)
+
+
+def test_cubemap_prefilters_match_jax(monkeypatch):
+    """The texel directions to rtol 1e-6 (one ulp: XLA and PyTorch's CPU
+    math library round the normalisation's square root differently); the
+    prefilters rtol 1e-4 / atol 1e-6 (N² dot products summed in another
+    order), first from JAX's directions (the port's ``cube_dirs`` patched to
+    return them), then from each side's own.  The GGX lobe at roughness 0.1
+    has α² = 1e-4, and its weight D(c) ∝ 1/(1 − c²(1 − α²))² moves by
+    4/α² = 4e4 times a change of c = cos θ near 1: the ulp by which the two
+    sides' cosines differ (measured here, |Δc| ≤ 1.2e-7) moves the
+    self-weight of a texel by 0.24 %.  So from the sides' own directions the
+    specular prefilters are held to rtol 1e-4 plus twice the first-order
+    effect of the measured |Δc| (:func:`_ggx_round_off`), and the mip
+    chain's normalised levels to the sum of the two relative bounds."""
     res = 8
     cube = np.random.default_rng(6).uniform(0.1, 2.0, size=(6, res, res, 3)).astype(np.float32)
-    assert_close(tcube.cube_dirs(res), jcube.cube_dirs(res), rtol=1e-6, atol=1e-7, what="cube_dirs")
+    dirs_t, dirs_j = n(tcube.cube_dirs(res)).reshape(-1, 3), np.asarray(jcube.cube_dirs(res)).reshape(-1, 3)
+    assert_close(dirs_t, dirs_j, rtol=1e-6, atol=1e-7, what="cube_dirs")
     assert_close(tcube.texel_solid_angles(res), jcube.texel_solid_angles(res), rtol=1e-6, what="solid angles")
     assert abs(float(tcube.texel_solid_angles(res).sum()) - 4 * np.pi) < 0.05
+    dcos = float(np.abs(n(t(dirs_t) @ t(dirs_t).T) - np.asarray(jnp.asarray(dirs_j) @ jnp.asarray(dirs_j).T)).max())
+    assert dcos <= 2 * np.finfo(np.float32).eps, dcos
     g = np.random.default_rng(7).normal(size=cube.shape).astype(np.float32)
     out_j, vjp = jax.vjp(jcube.diffuse_cubemap, jnp.asarray(cube))
-    ct = t(cube, True)
-    out_t = tcube.diffuse_cubemap(ct)
-    torch.sum(out_t * t(g)).backward()
-    assert_close(out_t, out_j, rtol=1e-4, atol=1e-6, what="diffuse")
-    assert_close(ct.grad, vjp(jnp.asarray(g))[0], rtol=1e-4, atol=1e-6, what="d diffuse / d cubemap")
-    for r in (0.1, 0.5):
-        assert_close(tcube.specular_cubemap(t(cube), r), jcube.specular_cubemap(jnp.asarray(cube), r), rtol=1e-4,
-                     atol=1e-6, what=f"specular {r}")
-    chain_t, chain_j = tcube.specular_mip_chain(t(cube)), jcube.specular_mip_chain(jnp.asarray(cube))
-    assert len(chain_t) == len(chain_j) == 2
-    for k, (a, b) in enumerate(zip(chain_t, chain_j)):
-        assert_close(a, b, rtol=1e-4, atol=1e-6, what=f"mip chain level {k}")
+    chain_j = jcube.specular_mip_chain(jnp.asarray(cube))
+    specs = (0.1, 0.5)
+    want = ([out_j, vjp(jnp.asarray(g))[0]] + [jcube.specular_cubemap(jnp.asarray(cube), r) for r in specs]
+            + chain_j)
+    names = ["diffuse", "d diffuse / d cubemap"] + [f"specular {r}" for r in specs] + \
+        [f"mip chain level {k}" for k in range(len(chain_j))]
+    assert len(chain_j) == 2
+    own = _prefilters(cube, g)
+    for k in range(2):
+        assert_close(own[k], want[k], rtol=1e-4, atol=1e-6, what=names[k])
+    for k, r in enumerate(specs):
+        bound = 2 * _ggx_round_off(cube, r, dcos)
+        assert_close(own[2 + k], want[2 + k], rtol=1e-4, atol=1e-6 + bound, what=names[2 + k])
+    base = cube
+    for k, (got, w) in enumerate(zip(own[4:], chain_j)):
+        r = 0.08 + (0.5 - 0.08) * k
+        b = _ggx_round_off(base, r, dcos)
+        filt = np.asarray(jcube.specular_cubemap(jnp.asarray(base), r), np.float64)
+        rel = 2 * (b[..., :3] / filt[..., :3] + b[..., 3:] / filt[..., 3:])
+        assert_close(got, w, rtol=1e-4, atol=1e-6 + rel * np.abs(np.asarray(w)), what=names[4 + k])
+        base = base.reshape(6, base.shape[1] // 2, 2, base.shape[2] // 2, 2, 3).mean((2, 4))
+    monkeypatch.setattr(tcube, "cube_dirs", lambda r, device=None: t(jcube.cube_dirs(r)))
+    for got, w, name in zip(_prefilters(cube, g), want, names):
+        assert_close(got, w, rtol=1e-4, atol=1e-6, what=f"{name}, JAX's directions")
 
 
 def _bsdf_inputs(p=400, seed=8):

@@ -12,7 +12,9 @@ JAX's ``Reconstructor.train_step`` returns no gradients, but its first Adam
 moments hold them: from zero moments one step leaves mu = (1 − β1)·g, after
 the trainer's scaling (hash tables ÷8, light ×64), which is what the port's
 ``.grad`` holds after its own step.  So one jitted JAX step gives the
-losses, the gradients and the updated parameters.
+losses, the gradients and the updated parameters.  ``step_both`` can hold
+both sides to the same branches and measure the port's round-off envelope
+(``torch_parity``).
 """
 import jax
 import jax.numpy as jnp
@@ -39,7 +41,8 @@ from gshell_tpu_torch.render.material import MLPTexture3DConfig
 from gshell_tpu_torch.render.render import RenderFlags
 from gshell_tpu_torch.train.reconstruct import Reconstructor, TrainConfig
 from gshell_tpu_torch.utils.rng import ReplayDraws
-from torch_parity import cosine_and_norm, n, t, train_source
+from torch_parity import (assert_close, assert_close_in_envelope, assert_cosine_and_norm, branch_masks,
+                          jittered_runs, n, off_branches, t, train_source)
 
 GRID, RES, STEP = 12, 32, 1000
 MLP = dict(n_freq=4, d_hidden=32, n_hidden=2, skip_in=(1,))
@@ -165,12 +168,21 @@ def port_gradients(state) -> dict:
     return out
 
 
-def step_both(geo_j, params_geo, tcfg: dict, key=jax.random.PRNGKey(5)) -> dict:
+def step_both(geo_j, params_geo, tcfg: dict, key=jax.random.PRNGKey(5), same_branches: bool = False,
+              jitter: bool = False) -> dict:
     """One JAX and one port train step from ``params_geo`` (a JAX geometry
     state for ``geo_j``) with the JAX draws of ``key`` replayed into the
     port → {metrics_j, metrics_t, grads_j, grads_t, before, after_j,
-    after_t, lr_t} (parameters flattened per geometry group; ``lr_t`` the
-    learning rate the port's step took for each geometry group)."""
+    after_t, lr_t, jittered} (parameters flattened per geometry group;
+    ``lr_t`` the learning rate the port's step took for each geometry
+    group).
+
+    With ``same_branches`` both sides' image losses leave out the elements
+    whose branch the port's round-off decides (``torch_parity.branch_mask``),
+    so that both take the same decisions on what they compare.  With
+    ``jitter`` the port's step runs again under each of
+    ``torch_parity.ENVELOPE_RUNS`` (``jittered``: their metrics_t, grads_t
+    and after_t) for the limits derived from its round-off envelope."""
     mat_j = JMatConfig(hash=JHashGridConfig(**HASH), **MAT)
     rec_j = JReconstructor(geo_j, mat_j, JRenderFlags(raster_backend="xla", max_per_tile=4096, **FLAGS),
                            JTrainConfig(batch=1, **tcfg))
@@ -178,7 +190,6 @@ def step_both(geo_j, params_geo, tcfg: dict, key=jax.random.PRNGKey(5)) -> dict:
     state_j = JTrainState(params_geo, params_mat, light, rec_j.tx_geo.init(params_geo),
                           rec_j.tx_mat.init(params_mat), rec_j.tx_lgt.init(light), jnp.asarray(STEP, jnp.int32))
     tgt = target()
-    new_j, m_j = rec_j.train_step(state_j, key, {k: jnp.asarray(v) for k, v in tgt.items()})
 
     g = geo_j.cfg
     geo_t = GShellGeometry(GeometryConfig(mlp=MLPConfig(**MLP), use_sdf_mlp=g.use_sdf_mlp,
@@ -187,23 +198,52 @@ def step_both(geo_j, params_geo, tcfg: dict, key=jax.random.PRNGKey(5)) -> dict:
     mat_t = MLPTexture3DConfig(hash=HashGridConfig(**HASH), **MAT)
     rec_t = Reconstructor(geo_t, mat_t, RenderFlags(**FLAGS), TrainConfig(batch=1, **tcfg))
     np_tree = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
-    state_t = convert.state_from_jax(rec_t, np_tree(params_geo), np_tree(params_mat), np.asarray(light), step=STEP)
-    before = {k: np.concatenate([n(p).reshape(-1) for p in _flat_t(v)]) for k, v in state_t.params_geo.items()}
-    lr_t = {k: grp["lr"] for k, grp in zip(state_t.params_geo, state_t.optimizers[0].param_groups)}
-    m_t = rec_t.train_step(state_t, ReplayDraws(train_source(key, 1)), {k: t(v) for k, v in tgt.items()})
-    return {
-        "metrics_j": {k: np.asarray(v) for k, v in m_j.items()},
-        "metrics_t": {k: n(v) if isinstance(v, torch.Tensor) else v for k, v in m_t.items()},
-        "grads_j": jax_gradients(new_j), "grads_t": port_gradients(state_t), "before": before,
-        "after_j": {k: _flat(new_j.params_geo[k]) for k in before},
-        "after_t": {k: np.concatenate([n(p).reshape(-1) for p in _flat_t(v)]) for k, v in state_t.params_geo.items()},
-        "lr_t": lr_t,
-    }
+    flat_geo = lambda st: {k: np.concatenate([n(p).reshape(-1) for p in _flat_t(v)]) for k, v in st.params_geo.items()}
+    loss_t, loss_j = rec_t.image_loss_fn, rec_j.image_loss_fn
+
+    def port(image_loss_fn=loss_t):
+        rec_t.image_loss_fn = image_loss_fn
+        state_t = convert.state_from_jax(rec_t, np_tree(params_geo), np_tree(params_mat), np.asarray(light),
+                                         step=STEP)
+        before = flat_geo(state_t)
+        lr_t = {k: grp["lr"] for k, grp in zip(state_t.params_geo, state_t.optimizers[0].param_groups)}
+        m_t = rec_t.train_step(state_t, ReplayDraws(train_source(key, 1)), {k: t(v) for k, v in tgt.items()})
+        return {"metrics_t": {k: n(v) if isinstance(v, torch.Tensor) else v for k, v in m_t.items()},
+                "grads_t": port_gradients(state_t), "before": before, "after_t": flat_geo(state_t), "lr_t": lr_t}
+
+    masks = branch_masks(port, loss_t) if same_branches else []
+    if masks:
+        rec_j.image_loss_fn = off_branches(loss_j, masks, jnp.where)
+        run = lambda: port(off_branches(loss_t, masks, torch.where))
+    else:
+        run = port
+    new_j, m_j = rec_j.train_step(state_j, key, {k: jnp.asarray(v) for k, v in tgt.items()})
+    out = run()
+    out.update(metrics_j={k: np.asarray(v) for k, v in m_j.items()}, grads_j=jax_gradients(new_j),
+               after_j={k: _flat(new_j.params_geo[k]) for k in out["before"]},
+               jittered=jittered_runs(run) if jitter else [])
+    return out
 
 
-def readings(s) -> dict:
-    """(cosine, relative norm difference) of each gradient group."""
-    return {k: cosine_and_norm(s["grads_t"][k], s["grads_j"][k]) for k in s["grads_t"]}
+def assert_losses(s, terms, rtol, enveloped=(), atol=1e-7):
+    """Each loss term to ``rtol`` / ``atol``; the terms in ``enveloped``
+    plus the port's round-off envelope (``torch_parity.assert_close_in_envelope``)."""
+    for k in terms:
+        jittered = [j["metrics_t"][k] for j in s["jittered"]] if k in enveloped else []
+        if jittered:
+            assert_close_in_envelope(s["metrics_t"][k], s["metrics_j"][k], jittered, rtol=rtol, atol=atol, what=k)
+        else:
+            assert_close(s["metrics_t"][k], s["metrics_j"][k], rtol=rtol, atol=atol, what=k)
+
+
+def assert_gradients(s, limits, enveloped=()):
+    """Each gradient group by cosine and relative norm difference at
+    ``limits[group]``; the groups in ``enveloped`` at the looser of that and
+    the port's round-off envelope (``torch_parity.cosine_and_norm_limits``)."""
+    for k, gt in s["grads_t"].items():
+        assert np.abs(gt).max() > 0, f"{k}: zero gradient"
+        jittered = [j["grads_t"][k] for j in s["jittered"]] if k in enveloped else []
+        assert_cosine_and_norm(gt, s["grads_j"][k], jittered, limits[k.replace("_net", "")], what=k)
 
 
 def update_agreement(s, name: str, lr: float) -> float:
