@@ -1878,9 +1878,8 @@ def banded_steps(job: dict, group) -> tuple:
     at ``job["state"]`` (set to step ``shadow_ramp_iters``) on the views of
     ``job["target"]``, draws seeded with ``SEED`` → (a record: per step the
     metrics and seconds, each parameter's sha256 after the steps, the launch
-    counts, the gradient average's seconds, the norms per parameter group of
-    the gradients each step handed to Adam and the peak memory; the
-    reconstructor; its state)."""
+    counts, the norms per parameter group of the gradients each step handed
+    to Adam and the peak memory; the reconstructor; its state)."""
     import hashlib
 
     import torch
@@ -1904,14 +1903,13 @@ def banded_steps(job: dict, group) -> tuple:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     rz.stage_b_calls, dn.bilateral_launches = 0, 0
-    out = {"steps": [], "allreduce_s": [], "grad_norms": []}
+    out = {"steps": [], "grad_norms": []}
     groups = {"geo": state.params_geo, "mat": state.params_mat, "light": [state.light_base]}
     for i in range(job["steps"]):
         t0 = time.time()
         m = rec.train_step(state, draws.child(f"step{i}"), target)
         sync()
         out["steps"].append({"s": time.time() - t0, **{k: float(v) for k, v in m.items()}})
-        out["allreduce_s"].append(rec.allreduce_seconds)
         with torch.no_grad():  # the gradients the step handed to Adam, averaged across the ranks
             out["grad_norms"].append({g: float(torch.linalg.vector_norm(torch.cat(
                 [p.grad.reshape(-1) for p in _leaves(tree)]))) for g, tree in groups.items()})
@@ -1927,8 +1925,7 @@ def diffusion_steps(job: dict, mesh) -> dict:
     """``job["small"]["steps"]`` steps of ``DiffusionTrainer(mesh=mesh)``
     (``None``: one process) on the grids matching ``job["glob"]``, the
     rank's rows from ``DistributedGridSampler``, draws seeded with ``SEED``
-    → {"log": per step the metrics, seconds and gradient average's seconds,
-    "params", "peak_gib"}."""
+    → {"log": per step the metrics and seconds, "params", "peak_gib"}."""
     import glob
 
     import torch
@@ -1955,7 +1952,7 @@ def diffusion_steps(job: dict, mesh) -> dict:
         t0 = time.time()
         state, m = tr.train_step(state, TorchDraws(torch.Generator(dev).manual_seed(SEED + it)), sampler())
         sync()
-        log.append({"s": time.time() - t0, **m, "allreduce_s": tr.allreduce_seconds})
+        log.append({"s": time.time() - t0, **m})
     return {"log": log, "params": n_params(state.model), "peak_gib": _peak_gib(dev)}
 
 
@@ -2060,7 +2057,7 @@ def diffusion_dp(smi: str, dev) -> dict:
     print(f"diffusion full width ({p['params']} parameters, batch 1 x 2), deterministic cuDNN: without a group "
           f"loss {p['loss']!r} grad_norm {p['grad_norm']!r} in {p['s']:.3f} s, peak {p['peak_gib']:.2f} GiB; NCCL "
           f"world size 1 loss {q['loss']!r} grad_norm {q['grad_norm']!r} in {q['s']:.3f} s, peak "
-          f"{q['peak_gib']:.2f} GiB, gradient average {q['allreduce_s']:.4f} s; bit-equal {equal}  [{smi}]")
+          f"{q['peak_gib']:.2f} GiB; bit-equal {equal}  [{smi}]")
     if not equal:
         bad.append("NCCL at world size 1 differs from the step without a group")
 
@@ -2081,8 +2078,8 @@ def diffusion_dp(smi: str, dev) -> dict:
     same = [(x["loss"], x["grad_norm"]) for x in a] == [(x["loss"], x["grad_norm"]) for x in b]
     rel = [max(_rel(x["loss"], y["loss"]), _rel(x["grad_norm"], y["grad_norm"])) for x, y in zip(a, one["log"])]
     print(f"diffusion 2 gloo ranks on one card ({ranks[0]['params']} parameters, base 32, grid {d}, batch 2 x 2, "
-          f"1 row a rank): steps {[round(x['s'], 3) for x in a]} s, gradient average "
-          f"{[round(x['allreduce_s'], 4) for x in a]} s, peak {[round(r['peak_gib'], 2) for r in ranks]} GiB a rank "
+          f"1 row a rank): steps {[round(x['s'], 3) for x in a]} s, "
+          f"peak {[round(r['peak_gib'], 2) for r in ranks]} GiB a rank "
           f"({ranks_s:.1f} s with the processes' start); 1 process: steps {[round(x['s'], 3) for x in one['log']]} "
           f"s, peak {one_peak:.2f} GiB; ranks equal {same}; loss / grad_norm against 1 process, max rel "
           f"{[f'{v:.2e}' for v in rel]}  [{smi}]")
@@ -2091,7 +2088,7 @@ def diffusion_dp(smi: str, dev) -> dict:
     if not all(v <= DIST_RTOL for v in rel):
         bad.append(f"two diffusion ranks against one process: {rel}")
     return {"nccl_world_1": {"no_group": p, "nccl": q, "bit_equal": equal},
-            "gloo_2_ranks": {"steps_s": [x["s"] for x in a], "allreduce_s": [x["allreduce_s"] for x in a],
+            "gloo_2_ranks": {"steps_s": [x["s"] for x in a],
                              "peak_gib": [r["peak_gib"] for r in ranks], "loss": [x["loss"] for x in a],
                              "one_process_loss": [x["loss"] for x in one["log"]], "max_rel": rel,
                              "ranks_equal": same, "one_process_peak_gib": one_peak}}, bad
@@ -2260,8 +2257,7 @@ def distributed_path(smi: str, dev) -> dict:
             rel_grad = {g: _rel(a["grad_norms"][0][g], v) for g, v in run["grad_norms"][0].items()}
             two.update(params_equal=not differ, max_rel_loss=rel, rel_grad_norms_step0=rel_grad)
             print(f"banded_tets on 2 gloo ranks ({a['cells_per_rank']} cells a rank): steps "
-                  f"{[round(e['s'], 3) for e in a['steps']]} / {[round(e['s'], 3) for e in b['steps']]} s, gradient "
-                  f"average {[round(x, 4) for x in a['allreduce_s']]} s, peak "
+                  f"{[round(e['s'], 3) for e in a['steps']]} / {[round(e['s'], 3) for e in b['steps']]} s, peak "
                   f"{[round(r['peak_gib'], 2) for r in ranks]} GiB a rank ({two['seconds_with_start']:.1f} s with "
                   f"the processes' start); launches {json.dumps(launches['banded_tets_2_ranks'])}; the ranks' "
                   f"parameters bit-equal after the steps {not differ}; against 1 process: total loss rel "

@@ -25,6 +25,7 @@ import torch
 from ..ops.mesh_ops import compact_faces
 from ..render import regularizer as reg
 from ..render.render import RenderFlags
+from ..utils.spans import span
 from .cube_grid import build_cube_grid
 from .geometry import (CutMesh, GeometryConfig, GShellGeometry, check_view_batch_mode, render_and_score,
                        sdf_weight)
@@ -100,13 +101,15 @@ class GShellFlexiGeometry:
 
     def extract(self, params: dict, training: bool = True):
         """→ (FlexiMesh, sdf on the lattice, faces compacted to the front of
-        ``face_cap`` slots, their validity, the count of valid faces)."""
-        v_def, sdf, msdf = self.fields(params)
-        w = params["cube_weights"]
-        mesh = self.extractor(v_def, sdf, msdf, beta=w[:, :12], alpha=w[:, 12:20], gamma=w[:, 20],
-                              training=training)
-        faces_c, fvalid_c, n_faces = compact_faces(mesh.faces, mesh.face_valid, cap=self.face_cap)
-        return mesh, sdf, faces_c, fvalid_c, n_faces
+        ``face_cap`` slots, their validity, the count of valid faces).  Span
+        ``recon.extract``."""
+        with span("recon.extract"):
+            v_def, sdf, msdf = self.fields(params)
+            w = params["cube_weights"]
+            mesh = self.extractor(v_def, sdf, msdf, beta=w[:, :12], alpha=w[:, 12:20], gamma=w[:, 20],
+                                  training=training)
+            faces_c, fvalid_c, n_faces = compact_faces(mesh.faces, mesh.face_valid, cap=self.face_cap)
+            return mesh, sdf, faces_c, fvalid_c, n_faces
 
     @torch.no_grad()
     def get_mesh(self, params: dict, training: bool = True) -> CutMesh:

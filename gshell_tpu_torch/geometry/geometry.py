@@ -26,6 +26,7 @@ from ..ops.shade import make_shadow_field, splat_lattice
 from ..parallel.spatial import CellGrid, render_batch_banded
 from ..render import regularizer as reg
 from ..render.render import RenderFlags, render_mesh, render_second_layer
+from ..utils.spans import span
 from .gshell_tets import GShellTets
 from .mlp import MLPConfig, apply_mlp, init_mlp
 from .tet_grid import build_tet_grid, default_capacities
@@ -217,15 +218,16 @@ class GShellGeometry:
         buffer → (mesh, faces, face_valid, n_faces, smooth vertex normals,
         the lattice SDF the extractor read: without gradient on the lazy
         path, with it otherwise).  ``shard_group``: the extractor's per-slot
-        stages split over its ranks."""
+        stages split over its ranks.  Span ``recon.extract``."""
         cfg = self.cfg
-        if cfg.lazy_field_grad and (cfg.use_sdf_mlp or cfg.use_msdf_mlp):
-            v_def, sdf, msdf, sdf_fn, msdf_fn = self.fields_lazy(params)
-        else:
-            (v_def, sdf, msdf), sdf_fn, msdf_fn = self.fields(params), None, None
-        mesh = self.extractor(v_def, sdf, msdf, sdf_fn=sdf_fn, msdf_fn=msdf_fn, shard_group=shard_group)
-        faces_c, fvalid_c, n_faces = compact_faces(mesh.faces, mesh.face_valid, cap=self.extractor.max_tets)
-        return mesh, faces_c, fvalid_c, n_faces, auto_normals(mesh.verts, faces_c, fvalid_c), sdf
+        with span("recon.extract"):
+            if cfg.lazy_field_grad and (cfg.use_sdf_mlp or cfg.use_msdf_mlp):
+                v_def, sdf, msdf, sdf_fn, msdf_fn = self.fields_lazy(params)
+            else:
+                (v_def, sdf, msdf), sdf_fn, msdf_fn = self.fields(params), None, None
+            mesh = self.extractor(v_def, sdf, msdf, sdf_fn=sdf_fn, msdf_fn=msdf_fn, shard_group=shard_group)
+            faces_c, fvalid_c, n_faces = compact_faces(mesh.faces, mesh.face_valid, cap=self.extractor.max_tets)
+            return mesh, faces_c, fvalid_c, n_faces, auto_normals(mesh.verts, faces_c, fvalid_c), sdf
 
     @torch.no_grad()
     def get_mesh(self, params: dict) -> CutMesh:
@@ -334,12 +336,14 @@ def render_and_score(geo, draws, params: dict, mesh, faces_c, fvalid_c, v_nrm, m
     coverage}).  A ``visibility`` the caller built takes the splat's place.
     With ``spatial`` the views render in (view, band) cells
     (:func:`parallel.spatial.render_batch_banded`; cell (v, b) draws under
-    ``view{v}/band{b}``, with no recomputation whatever ``remat`` says)."""
+    ``view{v}/band{b}``, with no recomputation whatever ``remat`` says).
+    Span ``recon.shadow`` around the splat and its shadow field."""
     cfg, dev = geo.cfg, geo.device
     coverage = {}
     if use_shadows and visibility is None:
-        occ, amin, asz, coverage = geo.splat_occupancy(draws.child("splat"), mesh.verts, faces_c, fvalid_c)
-        visibility = make_shadow_field(occ, amin, asz, ko=shadow_ko)
+        with span("recon.shadow"):
+            occ, amin, asz, coverage = geo.splat_occupancy(draws.child("splat"), mesh.verts, faces_c, fvalid_c)
+            visibility = make_shadow_field(occ, amin, asz, ko=shadow_ko)
     second = cfg.use_img_2nd_layer or cfg.use_depth_2nd_layer
     n_views = target["mvp"].shape[0]
 

@@ -170,8 +170,7 @@ def run(args, device, mesh) -> dict:
             batch = sampler()
             state, m = trainer.train_step(state, _step_draws(args.seed, it, device), batch)
             if it % args.log_freq == 0:
-                extra = {"allreduce_s": trainer.allreduce_seconds} if mesh is not None else {}
-                out["log"].append({"step": it, "s": time.time() - t0, **m, **extra})
+                out["log"].append({"step": it, "s": time.time() - t0, **m})
                 say(f"step {it}: loss={m['loss']:.6f} grad_norm={m['grad_norm']:.4f} "
                     f"({time.time() - t0:.3f} s)", flush=True)
             if it % args.snapshot_freq == 0 and it > 0:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..render.light import EnvLight, eval_light, sample_light
+from ..utils.spans import span
 from .bsdf import lambert, pbr_specular
 from .math import (build_orthonormal_basis, cosine_sample, cross, dir_to_latlong_uv, dot, luminance,
                    safe_normalize, sqrt_nonneg)
@@ -418,7 +419,8 @@ class _MCAccumulate(torch.autograd.Function):
     backward re-walks the blocks and sums each block's input gradients
     instead of keeping 64 steps of residuals (JAX ``_mc_accumulate`` :540).
     The forward keeps each block's shadow visibilities (``aux``) so the
-    re-walk does not repeat the shadow lookups."""
+    re-walk does not repeat the shadow lookups.  The re-walk is the span
+    ``recon.shade_backward``."""
 
     @staticmethod
     def forward(ctx, walk, *tensors):
@@ -438,7 +440,7 @@ class _MCAccumulate(torch.autograd.Function):
         walk = ctx.walk
         tensors = ctx.saved_tensors
         need = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
+        with torch.enable_grad(), span("recon.shade_backward"):
             a = {
                 name: t.detach().requires_grad_(True) if nd else t
                 for name, t, nd in zip(walk.names, tensors, need)

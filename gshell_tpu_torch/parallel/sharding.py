@@ -24,7 +24,6 @@ A process group of ``None`` means one process: no collective runs.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
 import torch
@@ -151,25 +150,22 @@ def broadcast_parameters(tensors, group) -> None:
 
 
 @torch.no_grad()
-def average_gradients(params, group, bucket_bytes: int = 1 << 26) -> float:
+def average_gradients(params, group, bucket_bytes: int = 1 << 26) -> None:
     """Every parameter's ``.grad`` averaged across ``group``, in place: a
     gradient of at least ``bucket_bytes`` is reduced where it lies, smaller
     ones are packed into buckets of about that size (one ``all_reduce``
     each), so no second full copy of the gradients is made.  A parameter
     without a gradient takes zeros, so that every rank runs the same
-    collectives.  Returns the seconds it took (the device synchronized
-    before and after, for gradients on a GPU)."""
+    collectives.  Nothing here waits for the device: the collectives
+    queue behind the backward's kernels."""
     if group is None:
-        return 0.0
+        return
     size = world(group)[1]
     grads = []
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
-    sync = torch.cuda.synchronize if grads and grads[0].is_cuda else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
 
     def reduce(flat):
         dist.all_reduce(flat, group=group)
@@ -196,8 +192,6 @@ def average_gradients(params, group, bucket_bytes: int = 1 << 26) -> float:
         bucket.append(g)
         nbytes += b
     flush()
-    sync()
-    return time.perf_counter() - t0
 
 
 @torch.no_grad()

@@ -20,6 +20,7 @@ from ..ops.mesh_ops import face_normals as compute_face_normals
 from ..ops.rasterize import (TILE, antialias, bary_screen_derivs, interpolate, rasterize, rasterize_peel,
                              rasterize_tiled_peel)
 from ..ops.shade import ShadowField, SdfVisibility, env_shade
+from ..utils.spans import span
 from . import texture as tex2d
 from .light import EnvLight
 from .material import MLPTexture3DConfig, TextureMaterial, sample_mlp_texture
@@ -126,48 +127,51 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params, mat_cfg: MLPTextur
     ``tex/hashgrid/sel``, a texture's ``tex_shift``.  With ``n_layers`` 2,
     ``rast_second`` holds layer 2 for :func:`render_second_layer` at the
     base resolution: at ``spp`` 1 peeled from the same bins and stage-B
-    winners, else from a second raster of the view at base resolution."""
+    winners, else from a second raster of the view at base resolution.
+    Spans: ``recon.raster`` (the geometry pass), ``recon.material``,
+    ``recon.shade`` (the MC walk) and ``recon.denoise``."""
     spp = flags.spp
     h, w = flags.resolution[0] * spp, flags.resolution[1] * spp
     dev = verts.device
     bsdf = flags.bsdf
 
     # ---- geometry pass ----------------------------------------------------
-    v_clip = xfm_points(verts, mvp)
-    layers = rasterize_layers(v_clip, faces, flags, n_layers if spp == 1 else 1, (h, w))
-    rast = layers[0]
-    mask = (rast.tri_id > 0).float()[..., None]
+    with span("recon.raster"):
+        v_clip = xfm_points(verts, mvp)
+        layers = rasterize_layers(v_clip, faces, flags, n_layers if spp == 1 else 1, (h, w))
+        rast = layers[0]
+        mask = (rast.tri_id > 0).float()[..., None]
 
-    attr_list = [verts, v_nrm, v_clip]
-    if msdf is not None:
-        attr_list.append(msdf[:, None])
-    gb_attr = interpolate(torch.cat(attr_list, dim=-1), rast, faces, v_clip=v_clip)
-    gb_pos = gb_attr[..., 0:3]
-    gb_normal_smooth = gb_attr[..., 3:6]
-    clip_i = gb_attr[..., 6:10]
-    msdf_image = gb_attr[..., 10:11] if msdf is not None else None
+        attr_list = [verts, v_nrm, v_clip]
+        if msdf is not None:
+            attr_list.append(msdf[:, None])
+        gb_attr = interpolate(torch.cat(attr_list, dim=-1), rast, faces, v_clip=v_clip)
+        gb_pos = gb_attr[..., 0:3]
+        gb_normal_smooth = gb_attr[..., 3:6]
+        clip_i = gb_attr[..., 6:10]
+        msdf_image = gb_attr[..., 10:11] if msdf is not None else None
 
-    fn = compute_face_normals(verts, faces)
-    fid = torch.clamp(rast.tri_id - 1, min=0)
-    gb_geo_normal = fn[fid] * mask
+        fn = compute_face_normals(verts, faces)
+        fid = torch.clamp(rast.tri_id - 1, min=0)
+        gb_geo_normal = fn[fid] * mask
 
-    noise = safe_normalize(draws.normal("tangent", gb_normal_smooth.shape))
-    gb_tangent = torch.linalg.cross(noise, gb_normal_smooth)
+        noise = safe_normalize(draws.normal("tangent", gb_normal_smooth.shape))
+        gb_tangent = torch.linalg.cross(noise, gb_normal_smooth)
 
-    db = bary_screen_derivs(rast, faces, v_clip)
+        db = bary_screen_derivs(rast, faces, v_clip)
 
-    def screen_derivs(tri):  # d(attr)/dx, d(attr)/dy of per-corner values (H, W, 3, C)
-        e02 = tri[..., 0, :] - tri[..., 2, :]
-        e12 = tri[..., 1, :] - tri[..., 2, :]
-        return db[..., 0:1] * e02 + db[..., 2:3] * e12, db[..., 1:2] * e02 + db[..., 3:4] * e12
+        def screen_derivs(tri):  # d(attr)/dx, d(attr)/dy of per-corner values (H, W, 3, C)
+            e02 = tri[..., 0, :] - tri[..., 2, :]
+            e12 = tri[..., 1, :] - tri[..., 2, :]
+            return db[..., 0:1] * e02 + db[..., 2:3] * e12, db[..., 1:2] * e02 + db[..., 3:4] * e12
 
-    dattr_dx, dattr_dy = screen_derivs(v_clip[faces[fid]])
-    eps = 1e-5
-    z0 = torch.clamp(clip_i[..., 2:3], min=eps) / torch.clamp(clip_i[..., 3:4], min=eps)
-    dz = torch.abs(dattr_dx[..., 2:3]) + torch.abs(dattr_dy[..., 2:3])
-    dw = torch.abs(dattr_dx[..., 3:4]) + torch.abs(dattr_dy[..., 3:4])
-    z1 = torch.clamp(clip_i[..., 2:3] + dz, min=eps) / torch.clamp(clip_i[..., 3:4] + dw, min=eps)
-    gb_depth = torch.cat([z0, torch.abs(z1 - z0)], dim=-1).detach()
+        dattr_dx, dattr_dy = screen_derivs(v_clip[faces[fid]])
+        eps = 1e-5
+        z0 = torch.clamp(clip_i[..., 2:3], min=eps) / torch.clamp(clip_i[..., 3:4], min=eps)
+        dz = torch.abs(dattr_dx[..., 2:3]) + torch.abs(dattr_dy[..., 2:3])
+        dw = torch.abs(dattr_dx[..., 3:4]) + torch.abs(dattr_dy[..., 3:4])
+        z1 = torch.clamp(clip_i[..., 2:3] + dz, min=eps) / torch.clamp(clip_i[..., 3:4] + dw, min=eps)
+        gb_depth = torch.cat([z0, torch.abs(z1 - z0)], dim=-1).detach()
 
     # ---- foreground-pixel compaction ---------------------------------------
     p_full = h * w
@@ -182,55 +186,56 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params, mat_cfg: MLPTextur
         return _PermuteScatter.apply(rows, perm, inv, p_full).reshape(h, w, c)
 
     # ---- material pass ------------------------------------------------------
-    omit_o = torch.tensor([0.0, 1.0, 1.0], device=dev)
-    perturbed_nrm = None
-    if isinstance(mat_params, TextureMaterial):
-        if v_tex is None or t_tex_idx is None:
-            raise ValueError("a TextureMaterial needs the v_tex / t_tex_idx UV attributes")
-        # UVs interpolated with the position triangle's barycentrics
-        gb_texc = interpolate(v_tex, rast, t_tex_idx, v_clip=v_clip, pos_faces=faces)
-        duv_dx, duv_dy = screen_derivs(v_tex[t_tex_idx[fid]])
-        uv_da = torch.cat([duv_dx[..., 0:1], duv_dy[..., 0:1], duv_dx[..., 1:2], duv_dy[..., 1:2]], -1).detach()
-        kd4 = tex2d.sample(mat_params.kd, gb_texc, uv_da)
-        alpha = kd4[..., 3:4] if kd4.shape[-1] == 4 else torch.ones_like(kd4[..., 0:1])
-        kd = kd4[..., 0:3]
-        ks = tex2d.sample(mat_params.ks, gb_texc, uv_da)[..., 0:3]
-        if mat_params.normal is not None:
-            perturbed_nrm = tex2d.sample(mat_params.normal, gb_texc, uv_da)[..., 0:3]
-        # smoothness taps one screen pixel away
-        shift_t = draws.randint("tex_shift", (2,), -1, 2)
-        grad_weight = mask * _roll(mask, shift_t)
-        kd_grad = abs_tie_up(_roll(kd, shift_t) - kd) * grad_weight
-        ks_grad = abs_tie_up(_roll(ks, shift_t) - ks) * omit_o * grad_weight
-    else:
-        tex_draws = draws.child("tex")
-        pos_m = compact(gb_pos) if idx_c is not None else gb_pos.reshape(p_full, 3)
-        if idx_c is not None and flags.jitter_tap_frac < 1.0:
-            # jitter tap on a random circular block [off, off + pj) of the rows
-            n_sl = pos_m.shape[0]
-            pj = min(n_sl, max(1024, int(n_sl * flags.jitter_tap_frac) // 256 * 256))
-            off = int(draws.randint("jitter_off", (), 0, n_sl))
-            pos_sel = torch.cat([pos_m, pos_m[:pj]], dim=0)[off:off + pj]
-            pos_j = pos_sel + flags.jitter_std * draws.normal("jitter", (pj, 3))
-            both = sample_mlp_texture(mat_params, mat_cfg, torch.cat([pos_m, pos_j], dim=0),
-                                      draws=tex_draws)
-            tex_main, tex_j = both[:n_sl], both[n_sl:]
-            tm_sel = torch.cat([tex_main, tex_main[:pj]], dim=0)[off:off + pj]
-            grad_rows = abs_tie_up(tex_j - tm_sel) * (n_sl / pj)
-            gr_ext = torch.nn.functional.pad(grad_rows, (0, 0, off, n_sl - off))
-            head = gr_ext[:n_sl]
-            grad_full = head + torch.nn.functional.pad(gr_ext[n_sl:], (0, 0, 0, n_sl - pj))
-            tex_img = scatter(torch.cat([tex_main, grad_full], dim=-1), 12)
+    with span("recon.material"):
+        omit_o = torch.tensor([0.0, 1.0, 1.0], device=dev)
+        perturbed_nrm = None
+        if isinstance(mat_params, TextureMaterial):
+            if v_tex is None or t_tex_idx is None:
+                raise ValueError("a TextureMaterial needs the v_tex / t_tex_idx UV attributes")
+            # UVs interpolated with the position triangle's barycentrics
+            gb_texc = interpolate(v_tex, rast, t_tex_idx, v_clip=v_clip, pos_faces=faces)
+            duv_dx, duv_dy = screen_derivs(v_tex[t_tex_idx[fid]])
+            uv_da = torch.cat([duv_dx[..., 0:1], duv_dy[..., 0:1], duv_dx[..., 1:2], duv_dy[..., 1:2]], -1).detach()
+            kd4 = tex2d.sample(mat_params.kd, gb_texc, uv_da)
+            alpha = kd4[..., 3:4] if kd4.shape[-1] == 4 else torch.ones_like(kd4[..., 0:1])
+            kd = kd4[..., 0:3]
+            ks = tex2d.sample(mat_params.ks, gb_texc, uv_da)[..., 0:3]
+            if mat_params.normal is not None:
+                perturbed_nrm = tex2d.sample(mat_params.normal, gb_texc, uv_da)[..., 0:3]
+            # smoothness taps one screen pixel away
+            shift_t = draws.randint("tex_shift", (2,), -1, 2)
+            grad_weight = mask * _roll(mask, shift_t)
+            kd_grad = abs_tie_up(_roll(kd, shift_t) - kd) * grad_weight
+            ks_grad = abs_tie_up(_roll(ks, shift_t) - ks) * omit_o * grad_weight
         else:
-            jit_pos = pos_m + flags.jitter_std * draws.normal("jitter", pos_m.shape)
-            both = sample_mlp_texture(mat_params, mat_cfg, torch.stack([pos_m, jit_pos]),
-                                      draws=tex_draws)
-            tex_rows = torch.cat([both[0], abs_tie_up(both[1] - both[0])], dim=-1)
-            tex_img = scatter(tex_rows, 12) if idx_c is not None else tex_rows.reshape(h, w, 12)
-        kd, ks = tex_img[..., 0:3], tex_img[..., 3:6]
-        kd_grad = tex_img[..., 6:9] * mask
-        ks_grad = tex_img[..., 9:12] * omit_o * mask
-        alpha = torch.ones_like(kd[..., 0:1])
+            tex_draws = draws.child("tex")
+            pos_m = compact(gb_pos) if idx_c is not None else gb_pos.reshape(p_full, 3)
+            if idx_c is not None and flags.jitter_tap_frac < 1.0:
+                # jitter tap on a random circular block [off, off + pj) of the rows
+                n_sl = pos_m.shape[0]
+                pj = min(n_sl, max(1024, int(n_sl * flags.jitter_tap_frac) // 256 * 256))
+                off = int(draws.randint("jitter_off", (), 0, n_sl))
+                pos_sel = torch.cat([pos_m, pos_m[:pj]], dim=0)[off:off + pj]
+                pos_j = pos_sel + flags.jitter_std * draws.normal("jitter", (pj, 3))
+                both = sample_mlp_texture(mat_params, mat_cfg, torch.cat([pos_m, pos_j], dim=0),
+                                          draws=tex_draws)
+                tex_main, tex_j = both[:n_sl], both[n_sl:]
+                tm_sel = torch.cat([tex_main, tex_main[:pj]], dim=0)[off:off + pj]
+                grad_rows = abs_tie_up(tex_j - tm_sel) * (n_sl / pj)
+                gr_ext = torch.nn.functional.pad(grad_rows, (0, 0, off, n_sl - off))
+                head = gr_ext[:n_sl]
+                grad_full = head + torch.nn.functional.pad(gr_ext[n_sl:], (0, 0, 0, n_sl - pj))
+                tex_img = scatter(torch.cat([tex_main, grad_full], dim=-1), 12)
+            else:
+                jit_pos = pos_m + flags.jitter_std * draws.normal("jitter", pos_m.shape)
+                both = sample_mlp_texture(mat_params, mat_cfg, torch.stack([pos_m, jit_pos]),
+                                          draws=tex_draws)
+                tex_rows = torch.cat([both[0], abs_tie_up(both[1] - both[0])], dim=-1)
+                tex_img = scatter(tex_rows, 12) if idx_c is not None else tex_rows.reshape(h, w, 12)
+            kd, ks = tex_img[..., 0:3], tex_img[..., 3:6]
+            kd_grad = tex_img[..., 6:9] * mask
+            ks_grad = tex_img[..., 9:12] * omit_o * mask
+            alpha = torch.ones_like(kd[..., 0:1])
 
     shift = draws.randint("nrm_shift", (2,), -1, 2)
     nrm_grad = abs_tie_up(_roll(gb_normal_smooth, shift) - gb_normal_smooth) * mask
@@ -259,17 +264,19 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params, mat_cfg: MLPTextur
                 gb_normal.reshape(p_full, 3), view_pos.reshape(p_full, 3),
                 kd_eff.reshape(p_full, 3), ks.reshape(p_full, 3),
             )
-        out = env_shade(
-            draws.child("shade"), *shade_in, light, n_samples_x=flags.n_samples, bsdf=bsdf,
-            shadow_scale=shadow_scale, visibility=visibility, mc_block=flags.mc_block,
-            light_bf16=flags.light_bf16,
-        )
+        with span("recon.shade"):
+            out = env_shade(
+                draws.child("shade"), *shade_in, light, n_samples_x=flags.n_samples, bsdf=bsdf,
+                shadow_scale=shadow_scale, visibility=visibility, mc_block=flags.mc_block,
+                light_bf16=flags.light_bf16,
+            )
         if idx_c is not None:
             ds = scatter(torch.cat([out.diffuse, out.specular], dim=-1), 6)
         else:
             ds = torch.cat([out.diffuse, out.specular], dim=-1).reshape(h, w, 6)
         if flags.use_denoiser and flags.denoiser_demodulate:  # diffuse and specular share the guides: one call
-            ds = bilateral_denoiser(ds, gb_normal, gb_depth, denoiser_sigma)
+            with span("recon.denoise"):
+                ds = bilateral_denoiser(ds, gb_normal, gb_depth, denoiser_sigma)
         diffuse_accum, specular_accum = ds[..., 0:3], ds[..., 3:6]
 
         if bsdf in ("white", "diffuse"):
@@ -277,7 +284,8 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params, mat_cfg: MLPTextur
         else:
             shaded_col = diffuse_accum * (kd_eff * (1.0 - ks[..., 2:3])) + specular_accum
         if flags.use_denoiser and not flags.denoiser_demodulate:
-            shaded_col = bilateral_denoiser(shaded_col, gb_normal, gb_depth, denoiser_sigma)
+            with span("recon.denoise"):
+                shaded_col = bilateral_denoiser(shaded_col, gb_normal, gb_depth, denoiser_sigma)
     elif bsdf == "normal":
         shaded_col = (gb_normal + 1.0) * 0.5
     elif bsdf == "kd":

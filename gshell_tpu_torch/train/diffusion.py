@@ -32,6 +32,7 @@ from ..models.sde import make_vpsde
 from ..models.unet3d import UNet3D, UNet3DConfig, compute_policy, init_unet
 from ..parallel.sharding import all_reduce_, average_gradients, broadcast_parameters, mesh_group, world
 from ..utils import checkpoint
+from ..utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +68,6 @@ class DiffusionTrainer:
         self.device = torch.device(device)
         self.group = mesh_group(mesh) if mesh is not None else None
         self.rank, self.world = world(self.group)
-        self.allreduce_seconds = 0.0  # the last step's gradient average
         self.sde = make_vpsde(cfg.beta_min, cfg.beta_max, cfg.num_scales, device=self.device)
         self.feature_mask, self.occ_mask = feature_mask, occ_mask
 
@@ -98,7 +98,10 @@ class DiffusionTrainer:
         """``batch``: {"grid": (A, B, C, D, D, D), "occgrid": (A, B, 1, 2D,
         2D, 2D)} with A = ``num_grad_acc_steps`` microbatches, B this rank's
         rows (B·W in all) → (state, {"loss", "grad_norm"}), the loss the
-        global batch's; the state is updated in place."""
+        global batch's; the state is updated in place.  Spans:
+        ``diffusion.step`` around each microbatch's ``diffusion.forward``
+        and ``diffusion.backward``, then ``diffusion.allreduce`` (with a
+        group), ``diffusion.update`` and ``diffusion.ema``."""
         a = self.cfg.num_grad_acc_steps
         lead = batch["grid"].shape[0]
         if lead != a:
@@ -106,30 +109,36 @@ class DiffusionTrainer:
         b = batch["grid"].shape[1]
         rows = (self.rank * b, self.world * b)
         model = state.model
-        model.train()
-        params = list(model.parameters())
-        for p in params:
-            p.grad = None
-        seed = int(draws.randint("dropout_seed", (1,), 0, 2 ** 62)[0]) + self.rank
-        loss_sum = torch.zeros((), device=self.device)
-        devices = [self.device] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=devices, device_type=self.device.type):
-            torch.manual_seed(seed)
-            for i in range(a):
-                mb = {k: v[i] for k, v in batch.items()}
-                with self.policy():
-                    loss = ddpm_loss(self.sde, model, draws.child(f"micro{i}"), mb,
-                                     self.feature_mask, self.occ_mask, rows=rows)
-                    loss.backward()
-                loss_sum += loss.detach()
-        if self.group is not None:
-            self.allreduce_seconds = average_gradients(params, self.group)
-            all_reduce_(loss_sum, self.group).div_(self.world)
-        grads = [p.grad.div_(a) for p in params]
-        grad_norm = state.opt.step(grads)
-        state.ema.update(params, self.cfg.ema_rate)
-        state.step += 1
-        return state, {"loss": float(loss_sum) / a, "grad_norm": grad_norm}
+        with span("diffusion.step"):
+            model.train()
+            params = list(model.parameters())
+            for p in params:
+                p.grad = None
+            seed = int(draws.randint("dropout_seed", (1,), 0, 2 ** 62)[0]) + self.rank
+            loss_sum = torch.zeros((), device=self.device)
+            devices = [self.device] if self.device.type == "cuda" else []
+            with torch.random.fork_rng(devices=devices, device_type=self.device.type):
+                torch.manual_seed(seed)
+                for i in range(a):
+                    mb = {k: v[i] for k, v in batch.items()}
+                    with self.policy():
+                        with span("diffusion.forward"):
+                            loss = ddpm_loss(self.sde, model, draws.child(f"micro{i}"), mb,
+                                             self.feature_mask, self.occ_mask, rows=rows)
+                        with span("diffusion.backward"):
+                            loss.backward()
+                    loss_sum += loss.detach()
+            if self.group is not None:
+                with span("diffusion.allreduce"):
+                    average_gradients(params, self.group)
+                    all_reduce_(loss_sum, self.group).div_(self.world)
+            grads = [p.grad.div_(a) for p in params]
+            with span("diffusion.update"):
+                grad_norm = state.opt.step(grads)
+            with span("diffusion.ema"):
+                state.ema.update(params, self.cfg.ema_rate)
+            state.step += 1
+            return state, {"loss": float(loss_sum) / a, "grad_norm": grad_norm}
 
     def save_checkpoint(self, path: str, state: DiffusionTrainState) -> None:
         """Rank 0 writes; every rank waits for it (a barrier)."""

@@ -42,6 +42,7 @@ from ..parallel.spatial import CellGrid
 from ..render.light import update_pdf
 from ..render.material import MLPTexture3DConfig, init_mlp_texture
 from ..render.render import RenderFlags
+from ..utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +133,6 @@ class Reconstructor:
                 raise ValueError(f"spatial {spatial}: {flags.resolution[0]} rows do not split into {n_band} bands")
             self.spatial = CellGrid(n_view, n_band, group if group is not None else default_group())
         self.group = self.spatial.group if self.spatial is not None else None
-        self.allreduce_seconds = 0.0  # the last step's gradient average
         g = geometry.cfg
         half = 0.5 * g.scale * np.asarray(g.boxscale, np.float64)
         self.aabb_min, self.aabb_size = tuple((-half).tolist()), tuple((2 * half).tolist())
@@ -171,25 +171,49 @@ class Reconstructor:
 
     def train_step(self, state: TrainState, draws, target: dict) -> dict:
         """One optimization step, in place on ``state``; returns the metrics
-        (0-d tensors)."""
-        t = self.tcfg
-        it = state.step
-        shadow_scale = min(it / t.shadow_ramp_iters, 1.0)
-        denoiser_sigma = max(shadow_scale * 2.0, 1e-4)
-        light = update_pdf(state.light_base)
-        visibility = self.sdf_occluder(state.params_geo) if t.use_shadows and t.shadow_source == "sdf" else None
-        img_loss, depth_loss, reg_loss, aux = self.geo.tick(
-            draws, state.params_geo, state.params_mat, self.mat_cfg, light, target, it,
-            self.flags, self.image_loss_fn, use_shadows=t.use_shadows,
-            shadow_scale=shadow_scale, denoiser_sigma=denoiser_sigma, shadow_ko=t.shadow_ko,
-            visibility=visibility, spatial=self.spatial,
-        )
-        total = img_loss + depth_loss + reg_loss
-        for opt in state.optimizers:
-            opt.zero_grad(set_to_none=True)
-        total.backward()
+        (0-d tensors).  Spans: ``recon.step`` around ``recon.forward``,
+        ``recon.backward`` and ``recon.update``."""
+        with span("recon.step"):
+            t = self.tcfg
+            it = state.step
+            with span("recon.forward"):
+                shadow_scale = min(it / t.shadow_ramp_iters, 1.0)
+                denoiser_sigma = max(shadow_scale * 2.0, 1e-4)
+                light = update_pdf(state.light_base)
+                visibility = (self.sdf_occluder(state.params_geo) if t.use_shadows and t.shadow_source == "sdf"
+                              else None)
+                img_loss, depth_loss, reg_loss, aux = self.geo.tick(
+                    draws, state.params_geo, state.params_mat, self.mat_cfg, light, target, it,
+                    self.flags, self.image_loss_fn, use_shadows=t.use_shadows,
+                    shadow_scale=shadow_scale, denoiser_sigma=denoiser_sigma, shadow_ko=t.shadow_ko,
+                    visibility=visibility, spatial=self.spatial,
+                )
+                total = img_loss + depth_loss + reg_loss
+            for opt in state.optimizers:
+                opt.zero_grad(set_to_none=True)
+            with span("recon.backward"):
+                total.backward()
+            with span("recon.update"):
+                bad, sdf_norm = self._update(state)
+                return mean_metrics({
+                    "total": total.detach(),
+                    "img_loss": img_loss.detach(),
+                    "depth_loss": depth_loss.detach(),
+                    "reg_loss": reg_loss.detach(),
+                    "nonfinite_grads": bad,
+                    **sdf_norm,
+                    **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()},
+                }, self.group)
+
+    def _update(self, state: TrainState) -> tuple:
+        """After the backward: the gradient average across the group, the
+        non-finite zeroing, the reference's tweaks, the three Adam steps and
+        their schedules, the clamps → (non-finite gradient elements, {the
+        SDF MLP's gradient norm} where there is one)."""
         groups = (state.params_geo, state.params_mat, [state.light_base])
-        self.allreduce_seconds = average_gradients(_leaves(groups), self.group)
+        if self.group is not None:
+            with span("recon.allreduce"):
+                average_gradients(_leaves(groups), self.group)
 
         # Non-finite gradients (grazing rays, degenerate silhouettes) are
         # zeroed instead of poisoning the Adam moments, and counted.
@@ -212,17 +236,8 @@ class Reconstructor:
         self.geo.clamp_params(state.params_geo)
         with torch.no_grad():
             state.light_base.clamp_(min=1e-4)
-        state.step = it + 1
-        return mean_metrics({
-            "total": total.detach(),
-            "img_loss": img_loss.detach(),
-            "depth_loss": depth_loss.detach(),
-            "reg_loss": reg_loss.detach(),
-            "nonfinite_grads": bad,
-            **sdf_norm,
-            **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in aux.items()},
-        }, self.group)
-
+        state.step += 1
+        return bad, sdf_norm
 
     def sdf_occluder(self, params_geo: dict):
         """The legacy template-SDF occluder of ``shadow_source`` "sdf": the

@@ -21,12 +21,11 @@ step 1000, a disk target), and prints, each as a JSON line:
      of the CUDA kernels, their launch count, and the twelve kernels with the
      most device time.  ``busy_share_estimate`` divides the kernel time by the
      host-clock wall time of the profiled step: the profiler slows the host,
-     so it understates the busy share of an unprofiled step.
-  4. ``layers``: host-clock milliseconds of a forward pass with
-     ``torch.cuda.synchronize()`` around each layer (which removes the
-     overlap between layers, so the layers add up to more than a plain
-     step), then of the backward and of the three Adam steps; the second of
-     two repetitions.
+     so it understates the busy share of an unprofiled step.  Then
+     ``spans``: for each of the port's spans (``utils/spans.py``) that the
+     step recorded, its count, host ms, self ms (less the part its child
+     spans cover), and the device ms and count of the kernels launched
+     while the host was inside it.
 
 With ``--config FILE`` it builds instead the train step of that config at
 its full width (``train.setup.reconstructor_from_flags``: its grid,
@@ -44,6 +43,7 @@ Usage: ``python3 tools/torch_step_profile.py [--flexicubes | --config FILE
 [--modes map_remat,map]]`` from the repository root.
 """
 import argparse
+import bisect
 import collections
 import json
 import os
@@ -62,6 +62,7 @@ from gshell_tpu_torch.ops import bsdf as B  # noqa: E402
 from gshell_tpu_torch.ops import shade as S  # noqa: E402
 from gshell_tpu_torch.render import render as R  # noqa: E402
 from gshell_tpu_torch.render.light import update_pdf  # noqa: E402
+from gshell_tpu_torch.utils import spans  # noqa: E402
 
 def emit(key, value):
     print(json.dumps({key: value}), flush=True)
@@ -116,6 +117,36 @@ def patch(targets, wrap):
 def restore(saved):
     for mod, name, fn in saved:
         setattr(mod, name, fn)
+
+
+def span_totals(prof, records) -> dict:
+    """Per span name of ``records`` (one profiled session's): count, host
+    ms, self ms (less the part its child spans cover), and the device ms
+    and count of the kernels launched inside it."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    launch = {e.correlation_id(): e.start_ns() for e in events
+              if e.device_type() != DeviceType.CUDA and e.name().startswith("cuda")}
+    kernels = sorted((launch[e.correlation_id()], e.duration_ns()) for e in events
+                     if e.device_type() == DeviceType.CUDA and e.correlation_id() in launch
+                     and not e.is_user_annotation() and not e.name().startswith(("Memcpy", "Memset")))
+    starts = [t for t, _ in kernels]
+    children = collections.defaultdict(list)
+    for r in records:
+        children[r.parent_id].append((r.start_ns, r.end_ns))
+    out = {}
+    for r in records:
+        covered, reached = 0, r.start_ns
+        for s, e in sorted(children[r.id]):
+            s, e = max(s, reached), min(e, r.end_ns)
+            if e > s:
+                covered, reached = covered + e - s, e
+        lo, hi = bisect.bisect_left(starts, r.start_ns), bisect.bisect_right(starts, r.end_ns)
+        t = out.setdefault(r.name, collections.Counter())
+        t.update(count=1, host_ms=(r.end_ns - r.start_ns) * 1e-6, self_ms=(r.end_ns - r.start_ns - covered) * 1e-6,
+                 device_ms=sum(d for _, d in kernels[lo:hi]) * 1e-6, launches=hi - lo)
+    return {k: dict(v) for k, v in sorted(out.items(), key=lambda kv: -kv[1]["host_ms"])}
 
 
 def grads_by_group(state):
@@ -288,6 +319,7 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    known = {r.id for r in spans.recorded()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -305,52 +337,7 @@ def main(argv=None) -> int:
         "card": card,
     })
 
-    # ---- 4. per-layer times ------------------------------------------------
-    layer = collections.defaultdict(float)
-
-    def timed(name, fn):
-        def wrapped(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            layer[name] += (time.perf_counter() - t0) * 1e3
-            return out
-        return wrapped
-
-    names = {"extract": (geo, "extract"), "fields (SDF MLP)": (geo, "fields"),
-             "shadow occluder splat": (geo, "splat_occupancy"),
-             "shadow field sweep": (G, "make_shadow_field"), "raster A+B+stitch": (R, "rasterize_layers"),
-             "interpolate": (R, "interpolate"), "material": (R, "sample_mlp_texture"),
-             "MC shade forward": (R, "env_shade"), "denoiser forward": (R, "bilateral_denoiser"),
-             "antialias": (R, "antialias"), "render_mesh": (G, "render_mesh")}
-    saved = []
-    for label, (mod, name) in names.items():
-        saved.append((mod, name, getattr(mod, name)))
-        setattr(mod, name, timed(label, getattr(mod, name)))
-    for rep in range(2):
-        layer.clear()
-        light = update_pdf(state.light_base)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, depth, reg, _ = geo.tick(
-            draws.child(f"layers{rep}"), state.params_geo, state.params_mat, rec.mat_cfg, light, target,
-            state.step, flags, rec.image_loss_fn, use_shadows=True, shadow_scale=1.0, denoiser_sigma=2.0)
-        torch.cuda.synchronize()
-        layer["forward (tick)"] = (time.perf_counter() - t0) * 1e3
-        for opt in state.optimizers:
-            opt.zero_grad(set_to_none=True)
-        t0 = time.perf_counter()
-        (img + depth + reg).backward()
-        torch.cuda.synchronize()
-        layer["backward"] = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        for opt in state.optimizers:
-            opt.step()
-        torch.cuda.synchronize()
-        layer["Adam x3"] = (time.perf_counter() - t0) * 1e3
-    restore(saved)
-    emit("layers", {"ms": dict(layer), "card": card})
+    emit("spans", {"by_name": span_totals(prof, [r for r in spans.recorded() if r.id not in known]), "card": card})
     return 0
 
 
