@@ -15,6 +15,12 @@ Runs, in order:
      transposed (denom_from_tap) stencils, 3 colour channels and 6 (diffuse
      and specular in one launch, as the renderer calls it), rtol 1e-5 /
      atol 1e-6;
+     Then the gathers' backward (csrc/gather_rows.cu) against aten's
+     index_put_(accumulate=True) on the shapes of ``tets128_train``'s nine
+     gather sites (rows, width, zero-row share and longest run of one index
+     as a traced step has them): each row within 1e-6 of its summed
+     magnitudes, the kernel's own count of scattered rows exact, both timed,
+     with the bound; a ``{"gather_backward": ...}`` line.
   5. a small train step (tet grid 16, 64x64) on the card against the same
      step on the CPU, where both kernels take their plain versions: same
      state, same draws; loss to rtol 1e-3, gradient cosines >= 0.98;
@@ -300,6 +306,94 @@ def time_stencil(col, nrm, zdz, smi: str) -> dict:
     return out
 
 
+# The gather sites of one ``tets128_train`` step whose backward the kernel
+# takes (the attribution of tools/torch_gather_attrib.py on the card): name,
+# calls a step, rows a call, row width, source rows, zero-row share, longest
+# run of one index (all zero rows), dtype.  The source rows are the
+# lattice's (129³ + 1) and the light's (512 × 1024) where they are known,
+# else a round number near the extraction's vertex and face buffers: they
+# set only the zeroing's share of the time.
+GATHER_SITES = (
+    ("face_normals (ops/mesh_ops.py)", 15, 393_216, 3, 200_000, 0.8751, 253_468, "f32"),
+    ("cut corners cattr[corners] (geometry/gshell_tets.py)", 1, 1_572_864, 5, 196_609, 0.9968, 988_504, "f32"),
+    ("antialias v_clip[faces[lead_fid]] (ops/rasterize.py)", 8, 784_896, 4, 200_000, 0.9358, 237_293, "f32"),
+    ("interpolate attr[faces[fid]] (ops/rasterize.py)", 4, 786_432, 11, 200_000, 0.8996, 238_067, "f32"),
+    ("_recompute_bary v_clip[faces[fid]] (ops/rasterize.py)", 4, 786_432, 4, 200_000, 0.8996, 238_067, "f32"),
+    ("geometric normal fn[fid] (render/render.py)", 4, 262_144, 3, 300_000, 0.9574, 238_066, "f32"),
+    ("crossing-edge ends pos_p[ev] (geometry/gshell_tets.py)", 2, 196_608, 3, 2_146_690, 0.5112, 100_620, "f32"),
+    ("crossing-edge ends msdf_p[ev] (geometry/gshell_tets.py)", 2, 196_608, 1, 2_146_690, 0.6435, 100_620, "f32"),
+    ("light lookup lp[ly, lx] (ops/shade.py)", 16, 1_048_576, 4, 512 * 1024, 0.8532, 956, "bf16"),
+)
+
+
+def gather_site_inputs(rows, width, n, zero_share, run, dtype, seed, dev):
+    """A site's gradient (rows, width) and index (rows,): ``run`` rows on one
+    sentinel source row with zero gradient, more zero rows at random to the
+    site's share, the rest random rows and indices, in random order (runs
+    of zero rows broken up, the kernel's worst case)."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    idx = torch.randint(0, n, (rows,), generator=gen, device=dev)
+    g = torch.randn((rows, width), generator=gen, device=dev)
+    zero = torch.rand(rows, generator=gen, device=dev) < (zero_share * rows - run) / max(rows - run, 1)
+    zero[:run] = True
+    idx[:run] = n - 1
+    g[zero] = 0.0
+    perm = torch.randperm(rows, generator=gen, device=dev)
+    g, idx = g[perm].contiguous(), idx[perm].contiguous()
+    return (g.bfloat16() if dtype == "bf16" else g), idx
+
+
+def gather_bound_ms(rows, width, n, live, elem):
+    """Bytes: the gradient and the index read once, the zeroed gradient of
+    the source written once, each live row's atomics (4 bytes an element)."""
+    return (rows * (width * elem + 8) + n * width * 4 + live * width * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def gather_backward_check(smi: str) -> dict:
+    """The gathers' backward kernel held against aten's and timed on each
+    site's shapes; ms a step summed over the sites' calls."""
+    import torch
+
+    from gshell_tpu_torch.ops import gather as ga
+
+    dev = torch.device("cuda:0")
+    sites, k_step, a_step, b_step = [], 0.0, 0.0, 0.0
+    for i, (name, calls, rows, width, n, zero_share, run, dtype) in enumerate(GATHER_SITES):
+        g, idx = gather_site_inputs(rows, width, n, zero_share, run, dtype, i, dev)
+        live = int((g != 0).any(1).sum())
+        aten = lambda: torch.zeros((n, width), dtype=g.dtype, device=dev).index_put_((idx,), g, accumulate=True)
+        want = aten().float()
+        scale = torch.zeros((n, width), device=dev).index_put_((idx,), g.float().abs(), accumulate=True)
+        s0 = ga.gather_stats()
+        got = ga.scatter_rows(g, idx, n).float()
+        s1 = ga.gather_stats()
+        err = torch.linalg.vector_norm(got - want, dim=1)
+        room = 1e-6 * torch.linalg.vector_norm(scale, dim=1)
+        if dtype == "bf16":
+            room = room + 2.0 ** -7 * torch.linalg.vector_norm(want, dim=1)
+        worst = float((err / torch.clamp(room, min=1e-30)).max())
+        if worst > 1.0 or s1["rows_scattered"] - s0["rows_scattered"] != live \
+                or s1["rows_seen"] - s0["rows_seen"] != rows:
+            raise RuntimeError(f"gather backward at {name}: error {worst:.3g} of its room, scattered "
+                               f"{s1['rows_scattered'] - s0['rows_scattered']} of {live} live rows")
+        k_ms = _median_ms(lambda: ga.scatter_rows(g, idx, n))
+        a_ms = _median_ms(aten)
+        bound = gather_bound_ms(rows, width, n, live, 2 if dtype == "bf16" else 4)
+        k_step, a_step, b_step = k_step + calls * k_ms, a_step + calls * a_ms, b_step + calls * bound
+        sites.append({"site": name, "calls": calls, "rows": rows, "width": width, "dtype": dtype,
+                      "zero_share": 1 - live / rows, "kernel_ms": k_ms, "aten_ms": a_ms, "bound_ms": bound,
+                      "share_of_bound": bound / k_ms, "err_of_room": worst})
+        print(f"gather backward, {name}: {rows} rows x {width} {dtype}, {1 - live / rows:.4f} zero; kernel "
+              f"{k_ms:.4f} ms (zeroing included), aten {a_ms:.3f} ms, bound {bound:.4f} ms "
+              f"({100 * bound / k_ms:.1f} %); error {worst:.3g} of its room  [{smi}]")
+    print(f"gather backward a tets128_train step ({sum(s['calls'] for s in sites)} calls): kernel {k_step:.3f} ms, "
+          f"aten {a_step:.2f} ms, bound {b_step:.3f} ms  [{smi}]")
+    return {"sites": sites, "kernel_ms_per_step": k_step, "aten_ms_per_step": a_step, "bound_ms_per_step": b_step,
+            "card": smi}
+
+
 def _median_ms(fn, n=10):
     import torch
 
@@ -544,11 +638,12 @@ class EntryPoints:
         import torch
 
         from gshell_tpu_torch.ops import denoiser as dn
+        from gshell_tpu_torch.ops import gather as ga
         from gshell_tpu_torch.ops import rasterize as rz
         from gshell_tpu_torch.train.setup import kernel_launches
 
         self.taps.clear()
-        rz.stage_b_calls, dn.bilateral_launches = 0, 0
+        rz.stage_b_calls, dn.bilateral_launches, ga.gather_bwd_launches = 0, 0, 0
         t0 = time.time()
         out = fn(argv)
         torch.cuda.synchronize()
@@ -664,7 +759,7 @@ def cli_path(smi: str):
         bad.append(f"final OBJ has {obj_faces} faces")
     if not (_finite(ev.get("psnr")) and _finite(ev.get("chamfer"))):
         bad.append(f"eval PSNR {ev.get('psnr')}, Chamfer {ev.get('chamfer')}")
-    bad += [f"{path}: {k} not launched" for path, c in launches.items() for k, v in c.items() if v <= 0]
+    bad += unlaunched(launches)
     if bad:
         raise RuntimeError("phase 7 (command-line path) failed: " + "; ".join(bad))
     return launches, held
@@ -1175,7 +1270,7 @@ def flexi_path(smi: str, dev) -> dict:
         bad.append(f"final OBJ has {resumed['final_faces']} faces")
     if not (_finite(ev.get("psnr")) and _finite(ev.get("chamfer"))):
         bad.append(f"eval PSNR {ev.get('psnr')}, Chamfer {ev.get('chamfer')}")
-    bad += [f"{path}: {k} not launched" for path, c in rec_out["launches"].items() for k, v in c.items() if v <= 0]
+    bad += unlaunched(rec_out["launches"])
     rec_out["seconds"] = time.time() - t_phase
     print(f"flexi phase: {rec_out['seconds']:.1f} s")
     if bad:
@@ -1339,7 +1434,7 @@ def second_layer_path(smi: str, dev) -> dict:
         bad.append(f"resumed run started at {resumed['start_it']} ({[e['it'] for e in resumed['log']]})")
     if not (_finite(ev.get("psnr")) and _finite(ev.get("chamfer"))):
         bad.append(f"eval PSNR {ev.get('psnr')}, Chamfer {ev.get('chamfer')}")
-    bad += [f"{path}: {k} not launched" for path, c in rec_out["launches"].items() for k, v in c.items() if v <= 0]
+    bad += unlaunched(rec_out["launches"])
     rec_out["seconds"] = time.time() - t_phase
     print(f"second-layer phase: {rec_out['seconds']:.1f} s")
     if bad:
@@ -1388,6 +1483,7 @@ def textured_round_trip(run: str, cfg_path: str, dev, mvp, campos) -> dict:
 
     from gshell_tpu_torch import train_gshell
     from gshell_tpu_torch.ops import denoiser as dn
+    from gshell_tpu_torch.ops import gather as ga
     from gshell_tpu_torch.ops import rasterize as rz
     from gshell_tpu_torch.render.light import update_pdf
     from gshell_tpu_torch.render.render import render_mesh
@@ -1410,7 +1506,7 @@ def textured_round_trip(run: str, cfg_path: str, dev, mvp, campos) -> dict:
 
     out = {"faces": int(mesh.t_pos_idx.shape[0]), "atlas": tuple(material.kd.base.shape)}
     with torch.no_grad():
-        rz.stage_b_calls, dn.bilateral_launches = 0, 0
+        rz.stage_b_calls, dn.bilateral_launches, ga.gather_bwd_launches = 0, 0, 0
         bufs = {bsdf: render(baked_geom, material, bsdf, **uv) for bsdf in ("kd", "pbr")}
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -1532,7 +1628,7 @@ def textured_path(smi: str, dev) -> dict:
     bad += [f"bsdf {b} emitted light buffers" for b in ("normal", "kd", "ks") if trip["light_buffers"].get(b)]
     if not trip["light_buffers"]["pbr"]:
         bad.append("bsdf pbr emitted no light buffers")
-    bad += [f"{path}: {k} not launched" for path, c in rec_out["launches"].items() for k, v in c.items() if v <= 0]
+    bad += unlaunched(rec_out["launches"])
     rec_out["seconds"] = time.time() - t_phase
     print(f"textured phase: {rec_out['seconds']:.1f} s")
     if bad:
@@ -1776,7 +1872,7 @@ def fields_path(smi: str, dev, flexi: dict) -> dict:
                 "fields_flexi_direct_gt_eval": c_ev["launches"]["ground_truth"],
                 "fields_flexi_direct_eval": c_ev["launches"]["synthetic"], **legacy.pop("launches")}
     print(f"fields launches by path: {json.dumps(launches)}")
-    bad += [f"{path}: {k} not launched" for path, c in launches.items() for k, v in c.items() if v <= 0]
+    bad += unlaunched(launches)
     summary = lambda log, run: {"steps_s": [e["s"] for e in log], "peak_gib": max(r["peak"] for r in run),
                                 "n_faces": [int(e["n_faces"]) for e in log],
                                 "nonfinite_grads": [int(e["nonfinite_grads"]) for e in log],
@@ -2305,10 +2401,11 @@ def bench_path(smi: str, dev, wp_steps: list) -> dict:
     """Phase 14: ``bench.main`` at the working point (state steps 0 to 21 from
     the pretrained state, against phase 6's steps at state step 1000,
     ``wp_steps``), counted and tapped as the CLI's entry points are, each
-    timed step launching stage B ``BATCH`` times and the stencil ``2 *
-    BATCH`` times, the first and last launches held; then
-    ``bench_extract.main`` at 64 and 80 and ``bench_diffusion.main``, which launch
-    neither kernel.  Returns the phase's record; raises on any failed
+    timed step launching stage B ``BATCH`` times, the stencil ``2 *
+    BATCH`` times and the gathers' backward, the first and last launches
+    held; then ``bench_extract.main`` at 64 and 80 and
+    ``bench_diffusion.main``, which launch neither the raster nor the
+    stencil kernel.  Returns the phase's record; raises on any failed
     check."""
     import torch
 
@@ -2323,8 +2420,8 @@ def bench_path(smi: str, dev, wp_steps: list) -> dict:
         launches = {"bench": kernel_launches()}
         ep.hold("bench (warm-up step: first launch; the FLOP-counted step: last)", run)
     want = {"rasterize_stage_b": BATCH, "bilateral_accumulate": 2 * BATCH}
-    bad = [f"bench timed step {i + 1}: launches {c}, want {want}" for i, c in enumerate(run["step_launches"])
-           if c != want]
+    bad = [f"bench timed step {i + 1}: launches {c}, want {want} and the gathers' backward"
+           for i, c in enumerate(run["step_launches"]) if {k: c[k] for k in want} != want or c["gather_rows"] <= 0]
     metric = f"gshell_train_step_iters_per_sec(res{RES},grid{GRID},spp{SPP},b{BATCH})"
     if line["metric"] != metric or not (_finite(line["value"]) and line["value"] > 0):
         bad.append(f"bench line {line}")
@@ -2357,7 +2454,7 @@ def bench_path(smi: str, dev, wp_steps: list) -> dict:
     if diff_line["metric"] != f"gmeshdiffusion_train_step(grid{d},occ{2 * d},b{DIFFUSION_BENCH_ARGV[1]})" \
             or not diff_line["value"] > 0:
         bad.append(f"bench_diffusion line {diff_line}")
-    if kernel_launches() != c0:
+    if any(kernel_launches()[k] != c0[k] for k in want):
         bad.append(f"bench_extract / bench_diffusion launched a hand kernel: {c0} -> {kernel_launches()}")
 
     rec_out = {"train_step": line, "extraction": extraction, "diffusion": diff_line,
@@ -2371,6 +2468,17 @@ def bench_path(smi: str, dev, wp_steps: list) -> dict:
     if bad:
         raise RuntimeError("phase 14 (measurement entry points) failed: " + "; ".join(bad))
     return rec_out
+
+
+def unlaunched(launches: dict) -> list:
+    """The paths (name → kernel → launches) on which a kernel that should run
+    there did not: the raster and the stencil on every path, the gathers'
+    backward on the paths that train (not a ground-truth render, not an
+    eval)."""
+    def due(path: str, kernel: str) -> bool:
+        return kernel != "gather_rows" or (path.endswith(("train", "train_resumed")) and "gt" not in path)
+    return [f"{path}: {k} not launched" for path, c in launches.items() for k, v in c.items()
+            if v <= 0 and due(path, k)]
 
 
 def absorb_path(results: list, by_path: dict, launches: dict, held: dict) -> None:
@@ -2482,6 +2590,8 @@ def main() -> int:
                     "ms_c3": st3["ms"], "eager_ms_c3": st3["eager_ms"], "plain_ms_c3": st3["plain_ms"],
                     "bound_ms_c3": st3["bound_ms"]})
 
+    gather_bwd = gather_backward_check(smi)
+
     # ---- phase 5: a small step on the card vs the CPU plain path -------------
     _small_step_reference(dev)
 
@@ -2574,6 +2684,7 @@ def main() -> int:
     print(json.dumps({"distributed": distributed}))
     print(json.dumps({"bench": benches}))
     print(json.dumps({"kernels": results}))
+    print(json.dumps({"gather_backward": gather_bwd}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

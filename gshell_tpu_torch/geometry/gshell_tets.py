@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.compact import nonzero_compact
+from ..ops.gather import gather_rows
 from ..ops.math import build_orthonormal_basis
 from ..ops.mesh_ops import auto_normals
 from ..parallel.sharding import slot_range, stitch, world
@@ -261,7 +262,7 @@ class GShellTets:
         slot_valid, ev0, ev1 = slot_valid[v0:v1], ev0[v0:v1], ev1[v0:v1]
 
         # ---- crossing edges → template vertices (this rank's vertex slots) ----
-        pa, pb = pos_p[ev0], pos_p[ev1]
+        pa, pb = gather_rows(pos_p, ev0), gather_rows(pos_p, ev1)
         if sdf_fn is not None:
             sab = sdf_fn(torch.cat([pa, pb], dim=0))
             sa = torch.where(slot_valid, sab[:nv], 1.0)
@@ -277,7 +278,7 @@ class GShellTets:
             ma = torch.where(slot_valid, mab[:nv], -1.0)
             mb = torch.where(slot_valid, mab[nv:], -1.0)
         else:
-            ma, mb = msdf_p[ev0], msdf_p[ev1]
+            ma, mb = gather_rows(msdf_p, ev0), gather_rows(msdf_p, ev1)
         msdf_vert = torch.where(slot_valid, ma * wa + mb * wb, 0.0)
         msdf_vert_sg = torch.where(slot_valid, ma * wa.detach() + mb * wb.detach(), 0.0)
         if shard_group is not None:
@@ -309,7 +310,7 @@ class GShellTets:
         # ---- mSDF cutting -----------------------------------------------------
         me = torch.clamp(self.mesh_edge_table[tetindex], 0, 5)
         corners = torch.gather(idx6, 1, me[:, :4])  # (nt, 4) ∈ [0, V]
-        cattr = torch.cat([verts_buf, msdf_buf[:, None], msdf_sg_buf[:, None]], dim=1)[corners]
+        cattr = gather_rows(torch.cat([verts_buf, msdf_buf[:, None], msdf_sg_buf[:, None]], dim=1), corners)
         c_msdf, c_msdf_sg = cattr[..., 3], cattr[..., 4]
         mocc = (c_msdf > 0).to(torch.int64)
         is_quad = num_tri == 2

@@ -9,11 +9,12 @@ import numpy as np
 import torch
 
 from .compact import nonzero_compact
+from .gather import gather_rows
 from .math import dot, safe_normalize
 
 
 def face_normals(v_pos, t_pos_idx, normalize: bool = True):
-    v0, v1, v2 = (v_pos[t_pos_idx[:, k]] for k in range(3))
+    v0, v1, v2 = (gather_rows(v_pos, t_pos_idx[:, k]) for k in range(3))
     n = torch.linalg.cross(v1 - v0, v2 - v0)
     return safe_normalize(n) if normalize else n
 

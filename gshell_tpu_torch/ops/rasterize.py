@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import kernels
+from .gather import gather_rows
 
 _W_EPS = 1e-6
 _BIG = 3.4e38
@@ -536,7 +537,7 @@ def _recompute_bary(v_clip, faces, tri_id, px, py, h, w):
     """Perspective-correct (b0, b1) for each pixel's selected triangle,
     differentiable w.r.t. ``v_clip``."""
     fid = torch.clamp(tri_id - 1, min=0)
-    tri = v_clip[faces[fid]]  # (P, 3, 4)
+    tri = gather_rows(v_clip, faces[fid])  # (P, 3, 4)
     inv_w = 1.0 / torch.clamp(tri[..., 3], min=_W_EPS)
     sx = (tri[..., 0] * inv_w * 0.5 + 0.5) * w
     sy = (tri[..., 1] * inv_w * 0.5 + 0.5) * h
@@ -569,7 +570,7 @@ def interpolate(attr, rast: Rast, faces, v_clip=None, pos_faces=None):
     b2 = 1.0 - b01.sum(-1, keepdim=True)
     bary = torch.cat([b01, b2], dim=-1)
     fid = torch.clamp(tri_id - 1, min=0)
-    av = attr[faces[fid]]  # (P, 3, C)
+    av = gather_rows(attr, faces[fid])  # (P, 3, C)
     out = (av * bary[..., None]).sum(dim=1)
     hit = (tri_id > 0)[:, None].to(out.dtype)
     return (out * hit).reshape(h, w, -1)
@@ -628,7 +629,7 @@ def antialias(color, rast: Rast, v_clip, faces):
         a_leads = torch.where(id_b == 0, True, torch.where(id_a == 0, False, z[ia] <= z[ib]))
         lead_fid = torch.clamp(torch.where(a_leads, id_a, id_b) - 1, min=0)
 
-        tri = v_clip[faces[lead_fid]]
+        tri = gather_rows(v_clip, faces[lead_fid])
         inv_w = 1.0 / torch.clamp(tri[..., 3], min=_W_EPS)
         sxc = (tri[..., 0] * inv_w * 0.5 + 0.5) * w
         syc = (tri[..., 1] * inv_w * 0.5 + 0.5) * h

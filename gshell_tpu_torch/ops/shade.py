@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from ..render.light import EnvLight, eval_light, sample_light
 from ..utils.spans import span
 from .bsdf import lambert, pbr_specular
+from .gather import gather_rows
 from .math import (build_orthonormal_basis, cosine_sample, cross, dir_to_latlong_uv, dot, luminance,
                    safe_normalize, sqrt_nonneg)
 
@@ -548,7 +549,7 @@ class _ShadeWalk:
         uv2 = dir_to_latlong_uv(ray_dir2)
         lx = torch.clamp((uv2[..., 0] * ww).to(torch.int64), 0, ww - 1)
         ly = torch.clamp((uv2[..., 1] * hh).to(torch.int64), 0, hh - 1)
-        texel = lp[ly, lx].float()  # radiance + selection pdf
+        texel = gather_rows(lp.reshape(hh * ww, -1), ly * ww + lx).float()  # radiance + selection pdf
         sin_t = torch.clamp(torch.sin(uv2[..., 1:2] * math.pi), min=1e-4)
         pdf_l2 = texel[..., 3:4] * (hh * ww) / (2.0 * math.pi * math.pi * sin_t)
         vis2 = shadow(ray_dir2, 1)

@@ -15,6 +15,7 @@ import torch
 
 from ..ops import bsdf as bsdf_ops
 from ..ops.denoiser import bilateral_denoiser
+from ..ops.gather import gather_rows
 from ..ops.math import abs_tie_up, avg_pool_nhwc, safe_normalize, xfm_points
 from ..ops.mesh_ops import face_normals as compute_face_normals
 from ..ops.rasterize import (TILE, antialias, bary_screen_derivs, interpolate, rasterize, rasterize_peel,
@@ -153,7 +154,7 @@ def render_mesh(draws, verts, faces, v_nrm, msdf, mat_params, mat_cfg: MLPTextur
 
         fn = compute_face_normals(verts, faces)
         fid = torch.clamp(rast.tri_id - 1, min=0)
-        gb_geo_normal = fn[fid] * mask
+        gb_geo_normal = gather_rows(fn, fid) * mask
 
         noise = safe_normalize(draws.normal("tangent", gb_normal_smooth.shape))
         gb_tangent = torch.linalg.cross(noise, gb_normal_smooth)

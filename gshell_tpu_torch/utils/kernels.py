@@ -98,6 +98,9 @@ def lib() -> ctypes.CDLL:
         handle.gs_stage_b_layout.restype = None
         handle.gs_bilateral.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, f32, i32, vp]
         handle.gs_bilateral.restype = i32
+        i64 = ctypes.c_longlong
+        handle.gs_scatter_rows.argtypes = [vp, i32, vp, i64, vp, i64, i32, vp, vp]
+        handle.gs_scatter_rows.restype = i32
         _lib = handle
     return _lib
 

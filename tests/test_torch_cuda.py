@@ -16,6 +16,12 @@ order, but the kernel's expf and the fused sums may round an ulp apart.
 The template-SDF marcher (plain PyTorch, no hand kernel) on the card against
 the CPU: nearest exactly, trilinear on at most 1e-4 of the rays (each
 sample is eager elementwise arithmetic on both sides, so none is expected).
+The gathers' backward (``csrc/gather_rows.cu``) against aten's
+``index_put_(accumulate=True)``, the backward of ``src[idx]``: the same
+numbers summed in f32 in another order, so each row within 1e-6 of the
+norm of its summed magnitudes (the scale of either sum's rounding), NaN
+and infinities in the same places, bf16 within one bf16 unit more;
+every zero gradient row skipped, by the kernel's own count.
 """
 import math
 
@@ -23,6 +29,7 @@ import pytest
 import torch
 
 from gshell_tpu_torch.ops import denoiser as dn
+from gshell_tpu_torch.ops import gather as ga
 from gshell_tpu_torch.ops import rasterize as rz
 from gshell_tpu_torch.ops.math import lookat, perspective, xfm_points
 from gshell_tpu_torch.utils.synthetic import crowded_tile_mesh
@@ -279,11 +286,12 @@ def test_train_step_on_the_card_runs_through_both_kernels(dev):
         "img": torch.cat([0.5 * disk.repeat(batch, 1, 1, 3), disk.repeat(batch, 1, 1, 1)], -1),
         "background": torch.zeros((batch, res, res, 3)),
     }.items()}
-    sb, bl = rz.stage_b_calls, dn.bilateral_launches
+    sb, bl, gb = rz.stage_b_calls, dn.bilateral_launches, ga.gather_bwd_launches
     m = rec.train_step(state, draws.child("step"), target)
     torch.cuda.synchronize()
     assert rz.stage_b_calls - sb == batch
     assert dn.bilateral_launches - bl == 2 * batch
+    assert ga.gather_bwd_launches > gb
     assert int(m["n_faces"]) > 0 and int(m["raster_dropped"]) == 0
     for k in ("total", "img_loss", "reg_loss"):
         assert math.isfinite(float(m[k])), k
@@ -518,3 +526,137 @@ def test_sdf_marcher_on_the_card_matches_the_cpu(dev, mode):
     assert 0 < float(cpu.mean()) < 1
     n_diff = int((card != cpu).sum())
     assert n_diff == 0 if mode == "nearest" else n_diff <= 1e-4 * o.shape[0], n_diff
+
+
+def _hold_scatter(g, idx, n):
+    """The kernel's scatter of ``g`` (M, C) into ``n`` rows at ``idx`` (M,)
+    against aten's on the card; prints the worst row's error over its room
+    and over its own norm (``-s`` shows it)."""
+    want = torch.zeros((n, g.shape[1]), dtype=g.dtype, device=g.device).index_put_((idx,), g, accumulate=True)
+    scale = torch.zeros((n, g.shape[1]), device=g.device).index_put_(
+        (idx,), g.float().abs().nan_to_num(0.0, 0.0, 0.0), accumulate=True)
+    live = int((g != 0).any(1).sum())
+    before = ga.gather_stats()
+    launches = ga.gather_bwd_launches
+    got = ga.scatter_rows(g, idx, n)
+    after = ga.gather_stats()
+    assert ga.gather_bwd_launches == launches + 1
+    assert after["rows_seen"] - before["rows_seen"] == g.shape[0]
+    assert after["rows_scattered"] - before["rows_scattered"] == live
+    assert got.dtype == want.dtype
+    got, want = got.float(), want.float()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got == float("inf"), want == float("inf"))
+    assert torch.equal(got == float("-inf"), want == float("-inf"))
+    fin = torch.isfinite(want).all(1)
+    err = torch.linalg.vector_norm((got - want)[fin], dim=1)
+    room = 1e-6 * torch.linalg.vector_norm(scale[fin], dim=1)
+    if g.dtype == torch.bfloat16:  # one more rounding to bf16 of a sum that may differ in its last f32 bits
+        room = room + 2.0 ** -7 * torch.linalg.vector_norm(want[fin], dim=1)
+    assert bool((err <= room).all()), float((err - room).max())
+    norm = torch.linalg.vector_norm(want[fin], dim=1)
+    nz = norm > 0
+    of_room = float((err / torch.clamp(room, min=1e-30)).max())
+    of_norm = float((err[nz] / norm[nz]).max()) if bool(nz.any()) else 0.0
+    print(f"scatter {tuple(g.shape)} {g.dtype} into {n} rows: {1 - live / g.shape[0]:.4f} zero rows skipped; "
+          f"worst row error {of_room:.3g} of its room, {of_norm:.3g} of its own norm")
+
+
+def _background_layout(n_faces, n_verts, res, hit_share, seed, dev):
+    """A 512² view's face-0 layout: ``1 - hit_share`` of the pixels read face
+    0 (the background), the rest a random face; → (faces, fid, hit)."""
+    g = torch.Generator().manual_seed(seed)
+    faces = torch.randint(0, n_verts, (n_faces, 3), generator=g)
+    hit = torch.rand(res * res, generator=g) < hit_share
+    fid = torch.where(hit, torch.randint(0, n_faces, (res * res,), generator=g), 0)
+    return faces.to(dev), fid.to(dev), hit.to(dev)
+
+
+@pytest.mark.parametrize("channels", [3, 4, 11])
+def test_gather_backward_kernel_matches_aten_on_a_background_layout(dev, channels):
+    """``attr[faces[fid]]`` with 65 % of 512² pixels on face 0 and the
+    gradient masked there, as ``interpolate`` takes it; a few NaN and
+    infinite rows among the hits."""
+    faces, fid, hit = _background_layout(60_000, 30_000, 512, 0.35, channels, dev)
+    gen = torch.Generator(dev).manual_seed(channels)
+    attr = torch.randn((30_000, channels), generator=gen, device=dev, requires_grad=True)
+    g = torch.randn((512 * 512, 3, channels), generator=gen, device=dev) * hit[:, None, None]
+    hits = torch.nonzero(hit)[:, 0]
+    g[hits[0], 1, 0] = float("nan")
+    g[hits[1], 2] = float("inf")
+    g[hits[2], 0, -1] = float("-inf")
+    idx = faces[fid]
+    assert torch.equal(ga.gather_rows(attr, idx), attr[idx])
+    (got,) = torch.autograd.grad(ga.gather_rows(attr, idx), attr, g)
+    (want,) = torch.autograd.grad(attr[idx], attr, g)
+    assert torch.equal(got.isnan(), want.isnan())
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+    _hold_scatter(g.reshape(-1, channels), idx.reshape(-1), 30_000)
+
+
+@pytest.mark.parametrize("live_run", [False, True])
+def test_gather_backward_kernel_matches_aten_on_a_sentinel_run(dev, live_run):
+    """10⁶ padded slots read the sentinel row, as the extraction's cut reads
+    ``cattr[corners]`` (C = 5): their gradient zero, or not (the heaviest
+    contention the merge can meet)."""
+    gen = torch.Generator(dev).manual_seed(int(live_run))
+    n, real, pad = 400_001, 300_000, 1_000_000
+    idx = torch.cat([torch.randint(0, n - 1, (real,), generator=gen, device=dev),
+                     torch.full((pad,), n - 1, device=dev)])
+    idx = idx[torch.randperm(idx.shape[0], generator=gen, device=dev)]
+    g = torch.randn((real + pad, 5), generator=gen, device=dev)
+    if not live_run:
+        g[idx == n - 1] = 0.0
+    _hold_scatter(g, idx, n)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_gather_backward_kernel_matches_aten_on_random_indices(dev, channels):
+    gen = torch.Generator(dev).manual_seed(channels)
+    n, m = 100_000, 2_000_000
+    idx = torch.randint(0, n, (m,), generator=gen, device=dev)
+    g = torch.randn((m, channels), generator=gen, device=dev)
+    g[torch.rand(m, generator=gen, device=dev) < 0.3] = 0.0
+    _hold_scatter(g, idx, n)
+
+
+def test_gather_backward_kernel_in_bf16_matches_aten(dev):
+    """The MC shade's light lookup: bf16 rows of a 512 × 1024 light, 10⁶
+    reads, half of them at texel 0 with a zero gradient."""
+    gen = torch.Generator(dev).manual_seed(5)
+    n, m = 512 * 1024, 1 << 20
+    idx = torch.randint(0, n, (m,), generator=gen, device=dev)
+    g = torch.randn((m, 4), generator=gen, device=dev).bfloat16()
+    half = torch.rand(m, generator=gen, device=dev) < 0.5
+    idx[half], g[half] = 0, 0.0
+    _hold_scatter(g, idx, n)
+
+
+def test_gather_backward_kernel_reads_a_strided_index(dev):
+    """``v_pos[t_pos_idx[:, k]]``: a column of the face table, read in place."""
+    gen = torch.Generator(dev).manual_seed(2)
+    t_pos_idx = torch.randint(0, 5000, (40_000, 3), generator=gen, device=dev)
+    t_pos_idx[30_000:] = 4999  # padded faces on one vertex
+    v = torch.randn((5000, 3), generator=gen, device=dev, requires_grad=True)
+    g = torch.randn((40_000, 3), generator=gen, device=dev)
+    g[30_000:] = 0.0
+    for k in range(3):
+        col = t_pos_idx[:, k]
+        assert not col.is_contiguous()
+        (got,) = torch.autograd.grad(ga.gather_rows(v, col), v, g)
+        (want,) = torch.autograd.grad(v[col], v, g)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_gather_backward_wrapper_rejects_bad_arguments(dev):
+    g = torch.randn((10, 3), device=dev)
+    idx = torch.zeros(10, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        ga.scatter_rows(g.double(), idx, 4)
+    with pytest.raises(ValueError):
+        ga.scatter_rows(g, idx.int(), 4)
+    with pytest.raises(ValueError):
+        ga.scatter_rows(g, idx[:5], 4)
+    with pytest.raises(ValueError):
+        ga.scatter_rows(g, idx.cpu(), 4)

@@ -108,7 +108,13 @@ def test_a_reconstruction_step_records_its_phases_and_stages():
     _, records = traced(lambda: rec.train_step(state, TorchDraws(torch.Generator().manual_seed(1)), target))
     want = {("recon.step", None): 1, ("recon.forward", "recon.step"): 1, ("recon.backward", "recon.step"): 1,
             ("recon.update", "recon.step"): 1, ("recon.extract", "recon.forward"): 1,
-            ("recon.shadow", "recon.forward"): 1, ("recon.shade_backward", "recon.backward"): VIEWS}
+            ("recon.shadow", "recon.forward"): 1, ("recon.shade_backward", "recon.backward"): VIEWS,
+            # the backward of each row gather (ops/gather.py): the extraction's 8 (crossing-edge ends'
+            # positions and mSDF, 2 each; the cut's corners; the vertex normals' face corners, 3) and each
+            # view's 8 (interpolate 2, antialias 2, the geometric normal, the face normals' corners 3),
+            # then the shade's light lookups, 2 a view, inside its re-walk
+            ("recon.gather_backward", "recon.backward"): 8 + 8 * VIEWS,
+            ("recon.gather_backward", "recon.shade_backward"): 2 * VIEWS}
     # each view renders in the forward and again, recomputed, in the backward
     want.update({(name, phase): VIEWS for name in VIEW_SPANS for phase in ("recon.forward", "recon.backward")})
     assert parents(records) == want
