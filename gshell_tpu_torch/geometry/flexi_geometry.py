@@ -13,10 +13,19 @@ over every lattice edge.
 The tick shadows with the cut mesh it extracted, as the tets tick does (a
 surface splat and the swept shadow field); the JAX tick takes whatever
 visibility it is handed and cannot build that occluder itself.
+
+Spans: ``recon.flexi_extract`` around the extractor's call inside
+``recon.extract`` (the lattice MLP left out) and
+``recon.flexi_extract_backward`` around each backward node of what that
+call computed.  Counters: while a profiler records, each tick logs its
+surface cubes, quad edges and faces beside their capacities, which
+:func:`slot_counts` reads outside a step.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 from typing import Callable
 
 import numpy as np
@@ -25,12 +34,29 @@ import torch
 from ..ops.mesh_ops import compact_faces
 from ..render import regularizer as reg
 from ..render.render import RenderFlags
-from ..utils.spans import span
+from ..utils.spans import recording, span, span_backward
 from .cube_grid import build_cube_grid
 from .geometry import (CutMesh, GeometryConfig, GShellGeometry, check_view_batch_mode, render_and_score,
                        sdf_weight)
 from .gshell_flexicubes import GShellFlexiCubes
 from .mlp import apply_mlp, init_mlp
+
+# (time_ns, int64 (3,) surface cubes, quad edges, faces, (max_cubes, max_edges, face_cap)) of each
+# tick run while a profiler recorded
+_slot_log: collections.deque = collections.deque(maxlen=4096)
+
+
+def slot_counts() -> list:
+    """{"time_ns", "surface_cubes", "max_cubes", "quad_edges", "max_edges",
+    "faces", "face_cap"} of each tick that ran while a profiler recorded,
+    oldest first (the time on the profiler's clock, as the tick ended; the
+    counts are read from the device: call it outside a step)."""
+    out = []
+    for t_ns, counts, caps in list(_slot_log):
+        cubes, edges, faces = counts.tolist()
+        out.append({"time_ns": t_ns, "surface_cubes": cubes, "max_cubes": caps[0], "quad_edges": edges,
+                    "max_edges": caps[1], "faces": faces, "face_cap": caps[2]})
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,13 +127,17 @@ class GShellFlexiGeometry:
 
     def extract(self, params: dict, training: bool = True):
         """→ (FlexiMesh, sdf on the lattice, faces compacted to the front of
-        ``face_cap`` slots, their validity, the count of valid faces).  Span
-        ``recon.extract``."""
+        ``face_cap`` slots, their validity, the count of valid faces).  Spans
+        ``recon.extract`` ⊃ ``recon.flexi_extract``, and
+        ``recon.flexi_extract_backward`` in the backward."""
         with span("recon.extract"):
             v_def, sdf, msdf = self.fields(params)
             w = params["cube_weights"]
-            mesh = self.extractor(v_def, sdf, msdf, beta=w[:, :12], alpha=w[:, 12:20], gamma=w[:, 20],
-                                  training=training)
+            with span("recon.flexi_extract"):
+                mesh = self.extractor(v_def, sdf, msdf, beta=w[:, :12], alpha=w[:, 12:20], gamma=w[:, 20],
+                                      training=training)
+            span_backward("recon.flexi_extract_backward",
+                          [t for t in mesh if isinstance(t, torch.Tensor)], (v_def, sdf, msdf, w))
             faces_c, fvalid_c, n_faces = compact_faces(mesh.faces, mesh.face_valid, cap=self.face_cap)
             return mesh, sdf, faces_c, fvalid_c, n_faces
 
@@ -155,10 +185,14 @@ class GShellFlexiGeometry:
         reg_loss = (sdf_reg + terms["eik_loss"] + terms["msdf_reg"] + terms["shading_reg"]
                     + self.cfg.l_dev_weight * mesh.l_dev)
         ext = self.extractor
+        if recording():
+            _slot_log.append((time.time_ns(), torch.stack([mesh.n_surf_cubes, mesh.n_quad_edges, n_faces]),
+                              (ext.max_cubes, ext.max_edges, self.face_cap)))
         aux = {
             "n_surf_cubes": mesh.n_surf_cubes,
             "n_faces": n_faces,
             "n_crossing_edges": mesh.n_crossing_edges,
+            "n_quad_edges": mesh.n_quad_edges,
             # a count above its slots is truncated by the compaction
             "cube_slot_overflow": (mesh.n_surf_cubes > ext.max_cubes).to(torch.int32),
             "edge_slot_overflow": (mesh.n_quad_edges > ext.max_edges).to(torch.int32),

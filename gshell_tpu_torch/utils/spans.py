@@ -15,7 +15,10 @@ same session.  Its parent is the innermost span open on the same thread;
 a span opened on a thread that has none open (autograd's device worker
 running a backward, and the recomputation of a checkpointed region there)
 takes the most recently opened of the other threads' innermost open
-spans: that of the thread waiting in ``backward()``."""
+spans: that of the thread waiting in ``backward()``.
+
+:func:`span_backward` spans the backward of a stretch of the forward: each
+autograd node between its outputs and its inputs, while the node runs."""
 from __future__ import annotations
 
 import collections
@@ -87,6 +90,41 @@ def span(name: str):
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Span(name)
+
+
+def recording() -> bool:
+    """Whether a profiler session records (and spans with it)."""
+    return bool(_profiler._is_profiler_enabled)
+
+
+def span_backward(name: str, outputs, inputs) -> None:
+    """While a profiler session records: the span ``name`` around every
+    autograd node that lies between the tensors ``outputs`` and the tensors
+    ``inputs`` (the backward of the operations that made the one from the
+    other), opened as the node starts and closed as it returns, on the
+    thread that runs it.  Nodes that the backward never reaches record
+    nothing.  Off the profiler it does nothing."""
+    if not _profiler._is_profiler_enabled:
+        return
+    stop = {t.grad_fn for t in inputs if t.grad_fn is not None}
+    open_spans = []
+
+    def enter(grad_outputs):
+        open_spans.append(_Span(name).__enter__())
+
+    def leave(grad_inputs, grad_outputs):
+        open_spans.pop().__exit__(None, None, None)
+
+    seen, todo = set(), [t.grad_fn for t in outputs if t.grad_fn is not None]
+    while todo:
+        node = todo.pop()
+        # a leaf input's node accumulates its gradient: the forward's stretch ends there
+        if node is None or node in seen or node in stop or type(node).__name__ == "AccumulateGrad":
+            continue
+        seen.add(node)
+        node.register_prehook(enter)
+        node.register_hook(leave)
+        todo.extend(f for f, _ in node.next_functions)
 
 
 def recorded() -> list:

@@ -238,17 +238,21 @@ def _flexi_round_off_entries(state_j):
     return bad_j, bad_t
 
 
-def test_flexi_cut_plane_makes_round_off_cuts():
+def test_flexi_cut_plane_round_off_cuts_agree_with_jax():
     """The JAX package's open-surface regulariser reads the cut point of
     every face edge of the watertight FlexiCubes mesh whose mSDF values
     differ by more than 1e-8, same sign or not.  The cut plane gives a row
     of lattice vertices the same mSDF, and the dual vertices and quad
-    centres between them average it: the port's come out an ulp apart
-    (|ν_u − ν_w| = 6e-8, above the floor), JAX's here exactly equal, so the
-    port computes cut points whose coefficients −ν_w/(ν_u − ν_w) are
-    1/round-off and JAX does not (ROADMAP C.6).  On every such edge of the
-    port's, JAX's two values are equal up to the same round-off; the edges
-    reach a handful of lattice entries."""
+    centres between them average it: on some hosts the port's come out an
+    ulp apart (|ν_u − ν_w| = 6e-8, above the floor) where JAX's are exactly
+    equal, so the port computes cut points whose coefficients
+    −ν_w/(ν_u − ν_w) are 1/round-off and JAX does not (ROADMAP C.6); on
+    others both packages' come out equal and neither makes such a cut
+    (ROADMAP C.10).  Where the port cuts, JAX's two values on every such
+    edge are equal up to the same round-off; where it does not, the port's
+    two values are exactly equal on every edge of the cut plane on which
+    JAX's are.  Either way the edges, the port's or JAX's, reach at most 1 %
+    of the lattice entries."""
     params, verts = _flexi_pretrained()
     state_j = {"geo": _cut(params, verts)}
     geo_j = JGShellFlexiGeometry(JFlexiGeometryConfig(mlp=JMLPConfig(**MLP), **GEO["flexicubes"]))
@@ -259,11 +263,16 @@ def test_flexi_cut_plane_makes_round_off_cuts():
     np.testing.assert_array_equal(n(mesh_t.faces_wt), np.asarray(mesh_j.faces_wt))
     bad, u, w = _round_off_cuts(n(mesh_t.msdf)[:nwt], n(mesh_t.faces_wt), n(mesh_t.face_wt_valid))
     nu_j = np.asarray(mesh_j.msdf, np.float64)[:nwt]
-    assert bad.any()
-    gap_j = np.abs(nu_j[u[bad]] - nu_j[w[bad]])
-    assert (gap_j <= CUT_ROUNDOFF * np.maximum(np.abs(nu_j[u[bad]]), np.abs(nu_j[w[bad]]))).all(), gap_j.max()
+    if bad.any():
+        gap_j = np.abs(nu_j[u[bad]] - nu_j[w[bad]])
+        assert (gap_j <= CUT_ROUNDOFF * np.maximum(np.abs(nu_j[u[bad]]), np.abs(nu_j[w[bad]]))).all(), gap_j.max()
+    else:
+        plane = n(mesh_t.face_wt_valid)[:, None] & (nu_j[u] == nu_j[w])
+        assert plane.any()
+        nu_t = n(mesh_t.msdf)[:nwt]
+        np.testing.assert_array_equal(nu_t[u[plane]], nu_t[w[plane]])
     bad_j, bad_t = _flexi_round_off_entries(state_j)
-    assert 0 < (bad_j | bad_t).sum() <= 0.01 * bad_t.size, (bad_j.sum(), bad_t.sum())
+    assert (bad_j | bad_t).sum() <= 0.01 * bad_t.size, (bad_j.sum(), bad_t.sum())
 
 
 def _flexi_pretrained():
