@@ -20,7 +20,12 @@ Runs, in order:
      gather sites (rows, width, zero-row share and longest run of one index
      as a traced step has them): each row within 1e-6 of its summed
      magnitudes, the kernel's own count of scattered rows exact, both timed,
-     with the bound; a ``{"gather_backward": ...}`` line.
+     with the bound; a ``{"gather_backward": ...}`` line.  Then the MC
+     shade's kernel pair (csrc/mc_shade.cu) against the eager walk at both
+     reconstruction cells' shapes (131,072 slots x 64 samples; 524,288 x
+     576, held on a slice of rows): the forward and each input's cotangent,
+     both passes timed, with the bound (``MC_OPS``); a ``{"mc_shade":
+     ...}`` line.
   5. a small train step (tet grid 16, 64x64) on the card against the same
      step on the CPU, where both kernels take their plain versions: same
      state, same draws; loss to rtol 1e-3, gradient cosines >= 0.98;
@@ -30,7 +35,7 @@ Runs, in order:
      steps, state step 1000 (shadows and sigma = 2 live), three train steps
      on a synthetic disk target; losses finite, faces > 0, no raster drops,
      and exactly 2 stage-B launches (three CUDA kernels each: schedule, test,
-     unpack) and 4 denoiser launches per step;
+     unpack) and 4 denoiser launches per step, and the MC shade's;
   7. the command-line path at the full width of the skirt quality config
      (configs/synthetic_skirt_512_shadowed.json: 512², tet grid 96,
      n_samples 8, batch 2, 64 shadowed ground-truth views): the port's
@@ -39,11 +44,14 @@ Runs, in order:
      ``eval_reconstruction.main`` measures 16 held-out views and the
      Chamfer-L2.  Losses, PSNR and Chamfer finite, faces > 0, no raster
      drops, the OBJ has faces, the resumed run starts at iteration 2, and
-     both kernels launched in the ground-truth pre-render, in training and
-     in eval.  Each kernel's first and last launch of each entry point (a
-     ground-truth view, the last train step, the last eval view) is held
-     against its plain version on the inputs that path gave it, as in
-     phases 3 and 4.  Prints the pre-render time per view, s/step and peak memory
+     the raster, stencil and MC shade kernels launched in the ground-truth
+     pre-render, in training and in eval, and no MC shade walk eager.  Each
+     kernel's first and last launch of each entry point (a ground-truth
+     view, the last train step, the last eval view) is held against its
+     plain version on the inputs that path gave it, as in phases 3 and 4
+     (the MC shade's forward and reverse launches on a window of
+     ``MC_TAP_ROWS`` rows from the first live one, against the eager walk,
+     to ``MC_TAP_RTOL``).  Prints the pre-render time per view, s/step and peak memory
      at grid 96, n_valid_tets / n_faces, the splat coverage, and the eval's
      time, PSNR and Chamfer, each beside the card.
   8. the diffusion path at the full width of configs/diffusion_upper_occgrid.json
@@ -394,6 +402,156 @@ def gather_backward_check(smi: str) -> dict:
             "card": smi}
 
 
+# The MC shade's walk in the reconstruction cells: cell, shade slots (pixel
+# rows), samples per side, mc_block, rows held against the eager walk (the
+# eager walk at 1024² takes ~9 s a view, so a slice of the rows there).
+MC_SHADE_CELLS = (
+    ("tets128_train", 131_072, 8, 8, 131_072),
+    ("flexi80_train", 524_288, 24, 8, 32_768),
+)
+# Live slots of a compacted view (shade_budget 0.5): 19.6 % in tets128_train,
+# 20.0 % in flexi80_train (shade_stats() over 5 steps on an NVIDIA H100).
+MC_SHADE_FG_SHARE = 0.2
+# The least arithmetic of the walk (bsdf pbr), a live pixel row and a sample
+# by the lobe its BSDF sample takes: (FP32 instructions, special-function
+# operations), the means over 4096 rows x 64 samples that
+# tools/mc_shade_ops.cpp counts by running csrc/mc_shade.cuh's own
+# arithmetic with a counting float (adds, products and FMAs; a division,
+# square root or transcendental one special-function operation and no
+# more; a sample along the branches it takes, less the sample of the lobe
+# it does not take; the row's part once a row).  The reverse repeats the
+# sample's forward.
+MC_OPS = {"fwd": {"row": (109.6, 21.9), "cosine": (378.5, 56.0), "ggx": (425.5, 61.0)},
+          "bwd": {"row": (352.2, 44.8), "cosine": (895.1, 98.5), "ggx": (1012.8, 105.1)}}
+
+
+def mc_shade_inputs(p, n, block, seed, dev):
+    """(walk, mask, tensors) of one ``env_shade`` call at ``p`` slots and n²
+    samples: rows facing the camera (roughness from 0.1: below it the eager
+    walk's own cotangent is not finite on a few rows), the foreground first
+    as the compaction leaves it, the cells' 512² light and a 65³ shadow
+    field of a sphere's shell."""
+    import numpy as np
+    import torch
+
+    from gshell_tpu_torch.ops import shade as sh
+    from gshell_tpu_torch.render.light import update_pdf
+    from gshell_tpu_torch.utils.rng import TorchDraws
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    pos = (torch.rand((p, 3), generator=gen, device=dev) - 0.5) * 0.8
+    nrm = torch.nn.functional.normalize(torch.randn((p, 3), generator=gen, device=dev), dim=-1)
+    view = torch.tensor([[0.0, 0.0, 2.5]], device=dev).expand(p, 3).contiguous()
+    nrm = torch.where(((view - pos) * nrm).sum(-1, keepdim=True) < 0, -nrm, nrm)
+    kd = torch.rand((p, 3), generator=gen, device=dev)
+    ks = torch.stack([torch.zeros(p, device=dev), 0.1 + 0.9 * torch.rand(p, generator=gen, device=dev),
+                      torch.rand(p, generator=gen, device=dev)], -1)
+    mask = (torch.arange(p, device=dev) < int(MC_SHADE_FG_SHARE * p)).float()[:, None]
+    light = update_pdf(torch.rand((512, 512, 3), generator=gen, device=dev) * 0.5 + 0.25)
+    d = np.random.default_rng(seed).normal(size=(20_000, 3))
+    shell = torch.tensor(0.45 * d / np.linalg.norm(d, axis=-1, keepdims=True), dtype=torch.float32, device=dev)
+    occ, _ = sh.splat_lattice(shell, (-0.7,) * 3, (1.4,) * 3, res=65)
+    vis = sh.make_shadow_field(occ, (-0.7,) * 3, (1.4,) * 3)
+    got = {}
+    apply = sh._MCShade.apply
+
+    def grab(walk, m, *t):
+        got.update(walk=walk, mask=m, tensors=t)
+        return apply(walk, m, *t)
+
+    sh._MCShade.apply = grab
+    try:
+        sh.env_shade(TorchDraws(torch.Generator(dev).manual_seed(seed)), mask, pos + nrm * 1e-3, pos, nrm, view, kd,
+                     ks, light, n_samples_x=n, visibility=vis, shadow_scale=1.0, mc_block=block)
+    finally:
+        sh._MCShade.apply = apply
+    return got["walk"], got["mask"], got["tensors"]
+
+
+def mc_shade_bound_ms(p, n, live, cos_share, n_pool, light_texels, backward: bool):
+    """(bound_ms, bound_by) of one walk: the least operations of the live
+    rows (``MC_OPS``: each row's part once, each sample's by the share
+    ``cos_share`` of samples that take the cosine lobe), or the bytes: every
+    row's mask, the live rows' inputs and draws u (12 bytes a sample), the
+    outputs, the pool and the light read once (the reverse: the live rows'
+    cotangent g read and their input cotangents read and written, the pool's
+    cotangent written once, the light's scratch read and written)."""
+    ops = MC_OPS["bwd" if backward else "fwd"]
+    per = [cos_share * c + (1.0 - cos_share) * g for c, g in zip(ops["cosine"], ops["ggx"])]
+    instr = live * ops["row"][0] + live * n * n * per[0]
+    mufu = live * ops["row"][1] + live * n * n * per[1]
+    bytes_moved = 12 * live * n * n + 4 * p + 4 * 17 * live + 4 * 6 * p + 28 * n * n * n_pool + 8 * light_texels
+    if backward:
+        bytes_moved += 4 * 6 * live + 2 * 4 * 12 * live + 28 * n * n * n_pool + 2 * 16 * light_texels
+    return _bound_ms(instr, bytes_moved, mufu)
+
+
+def mc_shade_check(smi: str) -> dict:
+    """The MC shade's kernel pair held against the eager walk at both
+    reconstruction cells' shapes (a slice of the rows at 1024²) and timed:
+    forward and reverse device ms, each against its bound; the eager walk
+    and the kernel pair on the held rows, forward and reverse called from
+    Python, timed after a first call."""
+    import torch
+
+    from gshell_tpu_torch.ops import shade as sh
+
+    dev = torch.device("cuda:0")
+    cells = []
+    for i, (cell, p, n, block, held) in enumerate(MC_SHADE_CELLS):
+        walk, mask, tensors = mc_shade_inputs(p, n, block, 100 + i, dev)
+        live_rows = mask[:, 0] != 0
+        live = int(live_rows.sum())
+        cos_share = float((walk.u[:, live_rows, 2] < tensors[5][live_rows, 0]).float().mean())
+        g = torch.randn((p, 6), generator=torch.Generator(dev).manual_seed(i), device=dev) * mask
+        # held: the kernel against the eager walk on the first `held` rows
+        sub = walk
+        if held < p:
+            sub = sh._ShadeWalk(walk.n, walk.block_size, walk.diffuse_only, walk.shadow_scale, walk.vis,
+                                walk.ro[:held], walk.rot[:held], walk.u[:, :held].contiguous(), walk.c)
+        rows_t = [t[:held] for t in tensors[:6]] + list(tensors[6:])
+
+        def both_passes(fn):
+            leaves = [t.detach().clone().requires_grad_(True) for t in rows_t]
+            out = fn(*leaves) * mask[:held]
+            return out.detach(), torch.autograd.grad(out, leaves, g[:held])
+
+        plain = lambda *t: sh._MCAccumulate.apply(sub, *t)
+        kernel = lambda *t: sh._MCShade.apply(sub, mask[:held], *t)
+        (oe, ge), (ok, gk) = both_passes(plain), both_passes(kernel)
+        walk_ms = [_sync_ms(lambda: both_passes(fn))[1] for fn in (plain, kernel)]  # warm: after the calls above
+        if not all(bool(torch.isfinite(x).all()) for x in (oe, ok, *ge, *gk)):
+            raise RuntimeError(f"mc shade at {cell}'s shape: a value or cotangent is not finite")
+        errs = {"forward": _rel_norm(ok, oe)}
+        for name, a, b in zip(sh._ShadeWalk.names, gk, ge):
+            errs[name] = _rel_norm(a, b)
+        worst = max(v / (2.0 ** -8 if k == "light_packed" else 1e-4) for k, v in errs.items())
+        fwd_ms = _device_ms(lambda: sh.mc_walk_kernel(walk, mask, tensors), k=3)
+        out, rows = sh.mc_walk_kernel(walk, mask, tensors)
+        pool, light = tensors[6].contiguous(), tensors[7].contiguous()
+        bwd_ms = _device_ms(lambda: sh.mc_rewalk_kernel(walk, rows, pool, light, g), k=2)
+        n_pool, texels = pool.shape[1], light.shape[0] * light.shape[1]
+        fb, fby = mc_shade_bound_ms(p, n, live, cos_share, n_pool, texels, False)
+        bb, bby = mc_shade_bound_ms(p, n, live, cos_share, n_pool, texels, True)
+        rec = {"cell": cell, "rows": p, "samples": n * n, "live_rows": live, "cosine_share": cos_share,
+               "held_rows": held, "errors": errs, "err_of_room": worst, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+               "fwd_bound_ms": fb, "fwd_bound_by": fby, "bwd_bound_ms": bb, "bwd_bound_by": bby,
+               "held_plain_ms": walk_ms[0], "held_kernel_ms": walk_ms[1]}
+        cells.append(rec)
+        print(f"mc shade at {cell}'s shape ({p} slots x {n * n} samples, {live} live, {cos_share:.3f} of the "
+              f"samples on the cosine lobe, {held} held): forward {fwd_ms:.3f} ms, bound {fb:.3f} ms ({fby}, "
+              f"{100 * fb / fwd_ms:.1f} %); reverse {bwd_ms:.3f} ms, bound {bb:.3f} ms ({bby}, "
+              f"{100 * bb / bwd_ms:.1f} %); on the {held} held rows, forward and reverse called from Python after "
+              f"a first call: eager walk {walk_ms[0]:.1f} ms, kernel {walk_ms[1]:.2f} ms; worst error "
+              f"{worst:.3g} of its room "
+              + "(" + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f")  [{smi}]")
+        if worst > 1.0:
+            raise RuntimeError(f"mc shade at {cell}'s shape: error {worst:.3g} of its room: {errs}")
+        del walk, tensors, rows, out, ge, gk
+        torch.cuda.empty_cache()
+    return {"cells": cells, "card": smi}
+
+
 def _median_ms(fn, n=10):
     import torch
 
@@ -574,28 +732,149 @@ def hold_bilateral(label, args, out) -> float:
     return max(errs)
 
 
+# Rows of a tapped MC shade launch held against the eager walk: a window
+# from the first live row (the eager walk at 1024² x 576 samples takes
+# seconds a view on all of them).
+MC_TAP_ROWS = 8192
+# The tapped MC shade launches against the eager walk on their window: the
+# forward's and each per-row input's cotangent's relative norm error.  Ten
+# times the card tests' 1e-4: a path's roughness reaches min_roughness
+# 0.08, where an ulp moves a sharp specular sample by percents (the card
+# tests draw roughness from 0.1).
+MC_TAP_RTOL = 1e-3
+# The kernels whose first and last launches every path holds.
+KERNELS_HELD = {"rasterize_stage_b", "bilateral_accumulate", "mc_shade"}
+
+
+def zero_launches() -> None:
+    """Every hand kernel's launch counter (``kernel_launches()``) to 0."""
+    from gshell_tpu_torch.ops import denoiser as dn
+    from gshell_tpu_torch.ops import gather as ga
+    from gshell_tpu_torch.ops import rasterize as rz
+    from gshell_tpu_torch.ops import shade as sh
+
+    rz.stage_b_calls = dn.bilateral_launches = ga.gather_bwd_launches = sh.mc_shade_launches = 0
+
+
+def _mc_window(walk, live):
+    """(start, the walk of rows [start, start + MC_TAP_ROWS)): from the first
+    row of ``live``; the pool's rotation reads the row index, so the
+    window's rotation is shifted by its start."""
+    from gshell_tpu_torch.ops import shade as sh
+
+    nz = live.nonzero()
+    a = int(nz[0, 0]) if nz.numel() else 0
+    b = min(a + MC_TAP_ROWS, live.shape[0])
+    sub = sh._ShadeWalk(walk.n, walk.block_size, walk.diffuse_only, walk.shadow_scale, walk.vis,
+                        walk.ro[a:b].clone(), walk.rot[a:b].clone(), walk.u[:, a:b].clone(), walk.c + a)
+    return a, sub
+
+
+def _tap_mc_walk(walk, mask, tensors, out):
+    """A forward launch: its window's inputs and output."""
+    a, sub = _mc_window(walk, mask[:, 0] != 0)
+    b = a + sub.ro.shape[0]
+    rows = [t[a:b].detach().clone() for t in tensors[:6]] + [t.detach().clone() for t in tensors[6:]]
+    return (sub, mask[a:b].clone(), rows), out[0][a:b].clone()
+
+
+def _tap_mc_rewalk(walk, rows, pool, light, g, need=(True,) * 8, out=()):
+    """A reverse launch: its window's packed rows, cotangent and per-row
+    input cotangents (the pool's and the light's sum over every row, so they
+    are not held here: the card tests hold them)."""
+    a, sub = _mc_window(walk, (rows[:, 17] != 0) & (g != 0).any(dim=1))
+    b = a + sub.ro.shape[0]
+    kept = tuple(None if x is None else x[a:b].clone() for x in out[:6])
+    return (sub, rows[a:b].clone(), pool.clone(), light.clone(), g[a:b].clone(), tuple(need)), kept
+
+
+def hold_mc_walk(label, args, out) -> float:
+    """A tapped forward launch against the eager walk on its window.
+    Returns the relative norm error."""
+    import torch
+
+    from gshell_tpu_torch.ops import shade as sh
+
+    walk, mask, tensors = args
+    want = sh._MCAccumulate.apply(walk, *tensors) * mask
+    err = _rel_norm(out, want)
+    live = int((mask != 0).sum())
+    print(f"mc shade {label}: {walk.ro.shape[0]} rows ({live} live) x {walk.n2} samples, forward relative "
+          f"error {err:.2e}")
+    if not bool(torch.isfinite(out).all()) or not err <= MC_TAP_RTOL:
+        raise RuntimeError(f"mc shade kernel disagrees with the eager walk ({label}): {err}")
+    return err
+
+
+def hold_mc_rewalk(label, args, out) -> float:
+    """A tapped reverse launch's per-row input cotangents against the eager
+    walk's on its window.  Returns the largest relative norm error."""
+    import torch
+
+    from gshell_tpu_torch.ops import shade as sh
+
+    walk, rows, pool, light, g, need = args
+    zeros = torch.zeros_like(rows[:, 0:2])
+    leaves = [rows[:, 0:3], rows[:, 3:6], torch.cat([zeros, rows[:, 6:7]], 1), rows[:, 7:10], rows[:, 10:11],
+              rows[:, 11:12]]
+    leaves = [x.clone().requires_grad_(nd) for x, nd in zip(leaves, need)]
+    with torch.enable_grad():
+        acc = sh._MCAccumulate.apply(walk, *leaves, pool, light)
+        asked = [x for x, nd in zip(leaves, need) if nd]
+        got = iter(torch.autograd.grad(acc, asked, g, allow_unused=True) if asked else ())
+    errs = {}
+    for name, x, nd, k in zip(sh._ShadeWalk.names, leaves, need, out):
+        if not nd:
+            continue
+        e = next(got)
+        e = torch.zeros_like(x) if e is None else e
+        if not bool(torch.isfinite(k).all()) or not bool(torch.isfinite(e).all()):
+            raise RuntimeError(f"mc shade reverse ({label}): a cotangent of {name} is not finite")
+        errs[name] = _rel_norm(k, e)
+    worst = max(errs.values(), default=0.0)
+    print(f"mc shade reverse {label}: {walk.ro.shape[0]} rows x {walk.n2} samples, relative error "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not worst <= MC_TAP_RTOL:
+        raise RuntimeError(f"mc shade reverse kernel disagrees with the eager walk ({label}): {errs}")
+    return worst
+
+
+def _rel_norm(a, b) -> float:
+    import torch
+
+    d = torch.linalg.vector_norm((a.float() - b.float()).double())
+    return float(d / torch.linalg.vector_norm(b.float().double()).clamp(min=1e-30))
+
+
 class KernelTaps:
-    """While installed, both kernel wrappers keep a copy of the inputs and
+    """While installed, the kernel wrappers keep a copy of the inputs and
     the outputs of their first and their last launch since the last
     ``clear()``, so that what a path fed the kernels can be held against
-    the plain versions after its launch counts are read.  The wrappers
-    count their launches as before."""
+    the plain versions after its launch counts are read (the MC shade's:
+    a window of rows, :func:`_mc_window`).  The wrappers count their
+    launches as before."""
 
     def __init__(self):
         from gshell_tpu_torch.ops import denoiser as dn
         from gshell_tpu_torch.ops import rasterize as rz
+        from gshell_tpu_torch.ops import shade as sh
 
-        self.slots = {"rasterize_stage_b": (rz, rz.rasterize_stage_b, self._stage_b_args),
-                      "bilateral_accumulate": (dn, dn.bilateral_accumulate, self._bilateral_args)}
+        self.slots = {"rasterize_stage_b": (rz, "rasterize_stage_b", self._stage_b_args),
+                      "bilateral_accumulate": (dn, "bilateral_accumulate", self._bilateral_args),
+                      "mc_shade": (sh, "mc_walk_kernel", _tap_mc_walk),
+                      "mc_shade_reverse": (sh, "mc_rewalk_kernel", _tap_mc_rewalk)}
+        self.fns = {name: getattr(mod, attr) for name, (mod, attr, _) in self.slots.items()}
         self.taps = {}
 
     @staticmethod
-    def _stage_b_args(pair_data, tile_start, tile_cnt, n_tiles, tx_n):
-        return pair_data, tile_start, tile_cnt, n_tiles, tx_n
+    def _stage_b_args(pair_data, tile_start, tile_cnt, n_tiles, tx_n, out=()):
+        keep = lambda x: x.detach().clone() if hasattr(x, "detach") else x
+        return tuple(map(keep, (pair_data, tile_start, tile_cnt, n_tiles, tx_n))), tuple(map(keep, out))
 
     @staticmethod
-    def _bilateral_args(col, nrm, zdz, sigma, r=11, denom_from_tap=False):
-        return col, nrm, zdz, sigma, r, denom_from_tap
+    def _bilateral_args(col, nrm, zdz, sigma, r=11, denom_from_tap=False, out=()):
+        keep = lambda x: x.detach().clone() if hasattr(x, "detach") else x
+        return tuple(map(keep, (col, nrm, zdz, sigma, r, denom_from_tap))), tuple(map(keep, out))
 
     def clear(self):
         self.taps = {name: [] for name in self.slots}
@@ -603,33 +882,48 @@ class KernelTaps:
     def __enter__(self):
         import torch
 
-        keep = lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x
-        for name, (mod, fn, canon) in self.slots.items():
-            def tapped(*args, _fn=fn, _name=name, _canon=canon, **kw):
+        for name, (mod, attr, take) in self.slots.items():
+            def tapped(*args, _fn=self.fns[name], _name=name, _take=take, **kw):
                 out = _fn(*args, **kw)
-                tap = (tuple(keep(a) for a in _canon(*args, **kw)), tuple(keep(o) for o in out))
+                with torch.no_grad():
+                    tap = _take(*args, **kw, out=out)
                 seen = self.taps[_name]
                 if seen:
                     seen[1:] = [tap]
                 else:
                     seen.append(tap)
                 return out
-            setattr(mod, name, tapped)
+            setattr(mod, attr, tapped)
         self.clear()
         return self
 
     def __exit__(self, *exc):
-        for name, (mod, fn, _) in self.slots.items():
-            setattr(mod, name, fn)
+        for name, (mod, attr, _) in self.slots.items():
+            setattr(mod, attr, self.fns[name])
+
+
+def hold_taps(label, taps, held) -> None:
+    """Each kernel's first and last tapped launch against its plain version;
+    the largest error per kernel into ``held`` (the MC shade's forward and
+    reverse under "mc_shade")."""
+    import torch
+
+    hold = {"rasterize_stage_b": hold_stage_b, "bilateral_accumulate": hold_bilateral, "mc_shade": hold_mc_walk,
+            "mc_shade_reverse": hold_mc_rewalk}
+    with torch.no_grad():
+        for name, fn in hold.items():
+            key = "mc_shade" if name == "mc_shade_reverse" else name
+            for when, (args, out) in zip(("first", "last"), taps.get(name, [])):
+                held[key] = max(held.get(key, 0.0), fn(f"{label}, {when} launch", args, out))
 
 
 class EntryPoints:
-    """Runs the port's entry points with both launch counts set to 0 just
+    """Runs the port's entry points with the launch counts set to 0 just
     before each call and read just after it (the entry points report each
-    of their phases, which must sum to the counts), with ``KernelTaps``
-    installed; then holds each kernel's first and last launch of the call
-    against its plain version, and keeps the largest error per kernel in
-    ``held``."""
+    of their phases, which must sum to the counts; no MC shade walk may be
+    eager), with ``KernelTaps`` installed; then holds each kernel's first
+    and last launch of the call against its plain version, and keeps the
+    largest error per kernel in ``held``."""
 
     def __init__(self, taps: KernelTaps):
         self.taps, self.held = taps, {}
@@ -637,13 +931,12 @@ class EntryPoints:
     def counted(self, fn, argv):
         import torch
 
-        from gshell_tpu_torch.ops import denoiser as dn
-        from gshell_tpu_torch.ops import gather as ga
-        from gshell_tpu_torch.ops import rasterize as rz
+        from gshell_tpu_torch.ops import shade as sh
         from gshell_tpu_torch.train.setup import kernel_launches
 
         self.taps.clear()
-        rz.stage_b_calls, dn.bilateral_launches, ga.gather_bwd_launches = 0, 0, 0
+        zero_launches()
+        eager = sh.shade_stats()["eager_walks"]
         t0 = time.time()
         out = fn(argv)
         torch.cuda.synchronize()
@@ -651,20 +944,13 @@ class EntryPoints:
         for k, v in kernel_launches().items():
             if sum(p[k] for p in out["launches"].values()) != v:
                 raise RuntimeError(f"{fn.__module__}: {k} launches by phase {out['launches']} do not sum to {v}")
+        if sh.shade_stats()["eager_walks"] != eager:
+            raise RuntimeError(f"{fn.__module__}: the MC shade took the eager walk on the card")
         out["taps"] = self.taps.taps
         return out
 
     def hold(self, label, run_out):
-        import torch
-
-        with torch.no_grad():
-            for when, (args, out) in zip(("first", "last"), run_out["taps"]["rasterize_stage_b"]):
-                err = hold_stage_b(f"{label}, {when} launch", args, out)
-                self.held["rasterize_stage_b"] = max(self.held.get("rasterize_stage_b", 0.0), err)
-            for when, (args, out) in zip(("first", "last"), run_out["taps"]["bilateral_accumulate"]):
-                err = hold_bilateral(f"{label}, {when} launch", args, out)
-                self.held["bilateral_accumulate"] = max(self.held.get("bilateral_accumulate", 0.0), err)
-        del run_out["taps"]
+        hold_taps(label, run_out.pop("taps"), self.held)
 
     def train(self, argv, label):
         import torch
@@ -720,7 +1006,7 @@ def cli_path(smi: str):
             "--gt-mesh", obj, "--gt-unit-size", "--n-views", "16", "--out-dir", os.path.join(run, "validate")],
             "cli eval (held-out ground truth, then eval view 15)")
     held = ep.held
-    if set(held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+    if set(held) != KERNELS_HELD:
         raise RuntimeError(f"phase 7 held only {sorted(held)} against the plain versions")
 
     log = first["log"] + resumed["log"]
@@ -1196,7 +1482,7 @@ def flexi_path(smi: str, dev) -> dict:
                              f"flexi eval (held-out ground truth, then eval view {FLEXI_EVAL_VIEWS - 1})")
     finally:
         train_gshell.GT_VIEWS = gt_views
-    if set(ep.held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+    if set(ep.held) != KERNELS_HELD:
         raise RuntimeError(f"phase 9 held only {sorted(ep.held)} against the plain versions")
     state_bytes = os.path.getsize(state_path)
 
@@ -1382,7 +1668,7 @@ def second_layer_path(smi: str, dev) -> dict:
                              f"second-layer eval (held-out ground truth, then eval view {SECOND_EVAL_VIEWS - 1})")
     finally:
         train_gshell.GT_VIEWS = gt_views
-    if set(ep.held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+    if set(ep.held) != KERNELS_HELD:
         raise RuntimeError(f"phase 10 held only {sorted(ep.held)} against the plain versions")
 
     log = first["log"] + resumed["log"]
@@ -1474,7 +1760,7 @@ def textured_round_trip(run: str, cfg_path: str, dev, mvp, campos) -> dict:
     the Texture2D branch under ``kd``, ``pbr`` (denoiser on), ``normal`` and
     ``ks``, with the run's flags (the config's spp and denoising); the
     neural material of the run's state on its own mesh and the same view
-    under ``kd``; the atlas flipped in v under ``kd``.  Both launch counts
+    under ``kd``; the atlas flipped in v under ``kd``.  The launch counts
     are set to 0 just before the ``kd`` and ``pbr`` renders and read just
     after.  → the PSNRs of the baked and the flipped kd against the neural
     kd, each BSDF's buffers' finiteness and whether it emitted light
@@ -1482,9 +1768,6 @@ def textured_round_trip(run: str, cfg_path: str, dev, mvp, campos) -> dict:
     import torch
 
     from gshell_tpu_torch import train_gshell
-    from gshell_tpu_torch.ops import denoiser as dn
-    from gshell_tpu_torch.ops import gather as ga
-    from gshell_tpu_torch.ops import rasterize as rz
     from gshell_tpu_torch.render.light import update_pdf
     from gshell_tpu_torch.render.render import render_mesh
     from gshell_tpu_torch.render.texture import create_trainable
@@ -1506,7 +1789,7 @@ def textured_round_trip(run: str, cfg_path: str, dev, mvp, campos) -> dict:
 
     out = {"faces": int(mesh.t_pos_idx.shape[0]), "atlas": tuple(material.kd.base.shape)}
     with torch.no_grad():
-        rz.stage_b_calls, dn.bilateral_launches, ga.gather_bwd_launches = 0, 0, 0
+        zero_launches()
         bufs = {bsdf: render(baked_geom, material, bsdf, **uv) for bsdf in ("kd", "pbr")}
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -1577,7 +1860,7 @@ def textured_path(smi: str, dev) -> dict:
                     {"taps": taps.taps, "launches": {}})
     finally:
         train_gshell.GT_VIEWS = gt_views
-    if set(ep.held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+    if set(ep.held) != KERNELS_HELD:
         raise RuntimeError(f"phase 11 held only {sorted(ep.held)} against the plain versions")
 
     log, bake = first["log"], baked["bake"]
@@ -1686,7 +1969,8 @@ def _field_checks(tag: str, log: list, faces: bool = True) -> list:
 def legacy_sources(smi: str, dev) -> dict:
     """Phase 12 (d): at phase 6's working point (state step 1000), one train
     step under ``shadow_source="sdf"`` with each ``shadow_method``, each from
-    the same state, its launches counted.  The share of rays from the cut
+    the same state, its launches counted and each kernel's first and last
+    launch held (the marcher's inside the MC shade's kernels).  The share of rays from the cut
     surface (uniform directions) each occluder blocks must lie strictly
     between 0 and 1 (1 is the sign fault that marks the exterior solid); the
     marcher's visibility on the card is held against the CPU's on the same
@@ -1694,18 +1978,17 @@ def legacy_sources(smi: str, dev) -> dict:
     occluder builds and the lookups are timed."""
     import torch
 
-    from gshell_tpu_torch.ops import denoiser as dn
-    from gshell_tpu_torch.ops import rasterize as rz
     from gshell_tpu_torch.ops.mesh_ops import sample_surface
     from gshell_tpu_torch.ops.shade import apply_visibility, make_sdf_visibility
     from gshell_tpu_torch.train.reconstruct import Reconstructor, TrainConfig
+    from gshell_tpu_torch.train.setup import kernel_launches
 
     rec, state, draws, target = working_point(dev)
     with torch.no_grad():
         mesh = rec.geo.get_mesh(state.params_geo)
         pts = sample_surface(draws.child("rays"), mesh.verts, mesh.faces, SHADOW_RAYS, face_mask=mesh.face_valid)
         dirs = torch.nn.functional.normalize(draws.normal("dirs", (SHADOW_RAYS, 3)), dim=-1)
-    out, launches, bad = {}, {}, []
+    out, launches, held, bad = {}, {}, {}, []
     for method in ("field", "march"):
         rec_m = Reconstructor(rec.geo, rec.mat_cfg, rec.flags,
                               TrainConfig(batch=BATCH, use_shadows=True, shadow_source="sdf", shadow_method=method))
@@ -1715,11 +1998,12 @@ def legacy_sources(smi: str, dev) -> dict:
             vis, build_ms = _sync_ms(lambda: rec_m.sdf_occluder(st.params_geo))
             blocked = float(1.0 - apply_visibility(vis, pts, dirs).mean())
             lookup_ms = min(_sync_ms(lambda: apply_visibility(vis, pts, dirs))[1] for _ in range(5))
-        rz.stage_b_calls, dn.bilateral_launches = 0, 0
+        zero_launches()
         torch.cuda.reset_peak_memory_stats()
-        m, step_ms = _sync_ms(lambda: rec_m.train_step(st, draws.child(f"legacy_{method}"), target))
-        launches[f"legacy_{method}_train"] = {"rasterize_stage_b": rz.stage_b_calls,
-                                              "bilateral_accumulate": dn.bilateral_launches}
+        with KernelTaps() as taps:
+            m, step_ms = _sync_ms(lambda: rec_m.train_step(st, draws.child(f"legacy_{method}"), target))
+        launches[f"legacy_{method}_train"] = kernel_launches()
+        hold_taps(f"legacy source sdf / {method} train step", taps.taps, held)
         m = {k: float(v) for k, v in m.items()}
         out[method] = {"build_ms": build_ms, "lookup_ms": lookup_ms, "rays": SHADOW_RAYS, "blocked": blocked,
                        "step_s": step_ms / 1e3, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1747,7 +2031,7 @@ def legacy_sources(smi: str, dev) -> dict:
                           f"{n_diff} differ; {ms:.2f} ms on the card  [{smi}]")
                     if n_diff > (0 if mode == "nearest" else MARCH_TRILINEAR_MAX_DIFF * SHADOW_RAYS):
                         bad.append(f"marcher {mode}: {n_diff} rays differ between the card and the CPU")
-    out["launches"] = launches
+    out["launches"], out["held_max_abs_err"] = launches, held
     if bad:
         raise RuntimeError("phase 12 (d) (legacy shadow sources) failed: " + "; ".join(bad))
     return out
@@ -1808,7 +2092,7 @@ def fields_path(smi: str, dev, flexi: dict) -> dict:
             c_ev = evaluate(ep, "flexi_direct", f"FlexiCubes direct SDF eval (held-out ground truth, then {last})")
     finally:
         train_gshell.GT_VIEWS = gt_views
-    if set(ep.held) != {"rasterize_stage_b", "bilateral_accumulate"}:
+    if set(ep.held) != KERNELS_HELD:
         raise RuntimeError(f"phase 12 held only {sorted(ep.held)} against the plain versions")
     bad = []
 
@@ -1861,6 +2145,8 @@ def fields_path(smi: str, dev, flexi: dict) -> dict:
 
     # (d) the legacy sources
     legacy = legacy_sources(smi, dev)
+    for k, v in legacy.pop("held_max_abs_err").items():
+        ep.held[k] = max(ep.held[k], v)
     launches = {"fields_direct_gt": a1["launches"]["dataset"], "fields_direct_train": a1["launches"]["train"],
                 "fields_direct_gt_resumed": a2["launches"]["dataset"],
                 "fields_direct_train_resumed": a2["launches"]["train"],
@@ -1980,10 +2266,8 @@ def banded_steps(job: dict, group) -> tuple:
 
     import torch
 
-    from gshell_tpu_torch.ops import denoiser as dn
-    from gshell_tpu_torch.ops import rasterize as rz
     from gshell_tpu_torch.train.reconstruct import Reconstructor, _leaves, load_state
-    from gshell_tpu_torch.train.setup import reconstructor_from_flags
+    from gshell_tpu_torch.train.setup import kernel_launches, reconstructor_from_flags
     from gshell_tpu_torch.utils.config import load_flags
     from gshell_tpu_torch.utils.rng import TorchDraws
 
@@ -1998,7 +2282,7 @@ def banded_steps(job: dict, group) -> tuple:
     sync()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    rz.stage_b_calls, dn.bilateral_launches = 0, 0
+    zero_launches()
     out = {"steps": [], "grad_norms": []}
     groups = {"geo": state.params_geo, "mat": state.params_mat, "light": [state.light_base]}
     for i in range(job["steps"]):
@@ -2009,7 +2293,7 @@ def banded_steps(job: dict, group) -> tuple:
         with torch.no_grad():  # the gradients the step handed to Adam, averaged across the ranks
             out["grad_norms"].append({g: float(torch.linalg.vector_norm(torch.cat(
                 [p.grad.reshape(-1) for p in _leaves(tree)]))) for g, tree in groups.items()})
-    out["launches"] = {"rasterize_stage_b": rz.stage_b_calls, "bilateral_accumulate": dn.bilateral_launches}
+    out["launches"] = kernel_launches()
     out["peak_gib"] = _peak_gib(dev)
     out["sha256"] = [hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
                      for p in _leaves((state.params_geo, state.params_mat, [state.light_base]))]
@@ -2191,7 +2475,7 @@ def diffusion_dp(smi: str, dev) -> dict:
 
 
 def band_kernels(rec, state, mvp, band: int, held: dict, taps: dict, label: str, smi: str) -> dict:
-    """Both kernels at the cell shape: the first and last tapped launches
+    """The kernels at the cell shape: the first and last tapped launches
     held against their plain versions (errors into ``held``), stage B timed
     on band ``band`` of ``mvp``'s view of the state's mesh, the stencil on
     the first tapped (forward, C = 6) launch's normals and depths."""
@@ -2204,17 +2488,14 @@ def band_kernels(rec, state, mvp, band: int, held: dict, taps: dict, label: str,
     nv, nb = rec.spatial.n_view, rec.spatial.n_band
     h, w = rec.flags.resolution
     hb2 = h // nb + 32
+    for args, _ in taps["rasterize_stage_b"]:
+        if args[3] != (hb2 // rz.TILE) * (w // rz.TILE):
+            raise RuntimeError(f"{label}: a stage-B launch of {args[3]} tiles, not a {hb2}x{w} cell's")
+    for args, _ in taps["bilateral_accumulate"]:
+        if tuple(args[0].shape[:2]) != (hb2, w):
+            raise RuntimeError(f"{label}: a stencil launch at {tuple(args[0].shape)}, not {hb2}x{w}")
+    hold_taps(f"{label} {hb2}x{w} cell", taps, held)
     with torch.no_grad():
-        for when, (args, out) in zip(("first", "last"), taps["rasterize_stage_b"]):
-            if args[3] != (hb2 // rz.TILE) * (w // rz.TILE):
-                raise RuntimeError(f"{label}: a stage-B launch of {args[3]} tiles, not a {hb2}x{w} cell's")
-            held["rasterize_stage_b"] = max(held.get("rasterize_stage_b", 0.0),
-                                            hold_stage_b(f"{label} {hb2}x{w} cell, {when} launch", args, out))
-        for when, (args, out) in zip(("first", "last"), taps["bilateral_accumulate"]):
-            if tuple(args[0].shape[:2]) != (hb2, w):
-                raise RuntimeError(f"{label}: a stencil launch at {tuple(args[0].shape)}, not {hb2}x{w}")
-            held["bilateral_accumulate"] = max(held.get("bilateral_accumulate", 0.0),
-                                               hold_bilateral(f"{label} {hb2}x{w} cell, {when} launch", args, out))
         mesh = rec.geo.get_mesh(state.params_geo)
         v_clip = gm.xfm_points(mesh.verts, band_mvp(mvp, band * (h // nb) - 16, hb2, h))
         bins = rz.bin_pairs(v_clip, mesh.faces, (hb2, w))
@@ -2317,6 +2598,7 @@ def distributed_path(smi: str, dev) -> dict:
         cells = n_cells[0] * n_cells[1]
         want = {"rasterize_stage_b": cells * job["steps"], "bilateral_accumulate": 2 * cells * job["steps"]}
         launches[name] = run["launches"]
+        got = lambda c: {k: c[k] for k in want}
         target = torch.load(job["target"], map_location=dev)
         run["kernels"] = band_kernels(rec, state, target["mvp"][0], 1, held, taps.taps, name, smi)
         if name == "banded_tets":
@@ -2334,8 +2616,8 @@ def distributed_path(smi: str, dev) -> dict:
                 if not _finite(e[k])]
         bad += [f"{name} step {i}: n_faces {e['n_faces']}, raster_dropped {e['raster_dropped']}"
                 for i, e in enumerate(run["steps"]) if e["n_faces"] <= 0 or e["raster_dropped"] != 0]
-        if run["launches"] != want:
-            bad.append(f"{name}: launches {run['launches']}, want {want}")
+        if got(run["launches"]) != want or run["launches"]["mc_shade"] <= 0:
+            bad.append(f"{name}: launches {run['launches']}, want {want} and the MC shade's")
         if "pixel_agreement" in run:
             bad += [f"{name}: banded against unbanded, {e}" for e in agreement_failures(run["pixel_agreement"])]
         rec_out[name] = run
@@ -2346,7 +2628,7 @@ def distributed_path(smi: str, dev) -> dict:
             t0 = time.time()
             ranks = run_two_ranks("banded", tets_job)
             two = {"seconds_with_start": time.time() - t0, "ranks": ranks}
-            launches["banded_tets_2_ranks"] = {k: sum(r["launches"][k] for r in ranks) for k in want}
+            launches["banded_tets_2_ranks"] = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
             a, b = ranks
             differ = [i for i, (x, y) in enumerate(zip(a["sha256"], b["sha256"])) if x != y]
             rel = [_rel(x["total"], y["total"]) for x, y in zip(a["steps"], run["steps"])]  # held: the first
@@ -2366,8 +2648,10 @@ def distributed_path(smi: str, dev) -> dict:
                 bad.append(f"two banded ranks against one process, loss: {rel}")
             if not all(v <= DIST_GRAD_RTOL for v in rel_grad.values()):
                 bad.append(f"two banded ranks against one process, step 0's gradient norms: {rel_grad}")
-            if launches["banded_tets_2_ranks"] != want:
-                bad.append(f"banded_tets_2_ranks: launches {launches['banded_tets_2_ranks']}, want {want}")
+            two_ranks = launches["banded_tets_2_ranks"]
+            if got(two_ranks) != want or two_ranks["mc_shade"] != run["launches"]["mc_shade"]:
+                bad.append(f"banded_tets_2_ranks: launches {two_ranks}, want {want} and one process's MC shade "
+                           f"launches {run['launches']['mc_shade']}")
             rec_out["banded_tets_2_ranks"] = two
     rec_out["launches"], rec_out["held_max_abs_err"] = launches, held
     rec_out["seconds"] = time.time() - t_phase
@@ -2420,8 +2704,9 @@ def bench_path(smi: str, dev, wp_steps: list) -> dict:
         launches = {"bench": kernel_launches()}
         ep.hold("bench (warm-up step: first launch; the FLOP-counted step: last)", run)
     want = {"rasterize_stage_b": BATCH, "bilateral_accumulate": 2 * BATCH}
-    bad = [f"bench timed step {i + 1}: launches {c}, want {want} and the gathers' backward"
-           for i, c in enumerate(run["step_launches"]) if {k: c[k] for k in want} != want or c["gather_rows"] <= 0]
+    bad = [f"bench timed step {i + 1}: launches {c}, want {want}, the gathers' backward and the MC shade"
+           for i, c in enumerate(run["step_launches"])
+           if {k: c[k] for k in want} != want or c["gather_rows"] <= 0 or c["mc_shade"] <= 0]
     metric = f"gshell_train_step_iters_per_sec(res{RES},grid{GRID},spp{SPP},b{BATCH})"
     if line["metric"] != metric or not (_finite(line["value"]) and line["value"] > 0):
         bad.append(f"bench line {line}")
@@ -2454,7 +2739,7 @@ def bench_path(smi: str, dev, wp_steps: list) -> dict:
     if diff_line["metric"] != f"gmeshdiffusion_train_step(grid{d},occ{2 * d},b{DIFFUSION_BENCH_ARGV[1]})" \
             or not diff_line["value"] > 0:
         bad.append(f"bench_diffusion line {diff_line}")
-    if any(kernel_launches()[k] != c0[k] for k in want):
+    if any(kernel_launches()[k] != c0[k] for k in (*want, "mc_shade")):
         bad.append(f"bench_extract / bench_diffusion launched a hand kernel: {c0} -> {kernel_launches()}")
 
     rec_out = {"train_step": line, "extraction": extraction, "diffusion": diff_line,
@@ -2463,7 +2748,7 @@ def bench_path(smi: str, dev, wp_steps: list) -> dict:
                "launches": launches, "held_max_abs_err": ep.held}
     rec_out["seconds"] = time.time() - t_phase
     print(f"bench phase: {rec_out['seconds']:.1f} s")
-    if set(ep.held) != set(want):
+    if set(ep.held) != KERNELS_HELD:
         bad.append(f"held only {sorted(ep.held)} against the plain versions")
     if bad:
         raise RuntimeError("phase 14 (measurement entry points) failed: " + "; ".join(bad))
@@ -2472,9 +2757,9 @@ def bench_path(smi: str, dev, wp_steps: list) -> dict:
 
 def unlaunched(launches: dict) -> list:
     """The paths (name → kernel → launches) on which a kernel that should run
-    there did not: the raster and the stencil on every path, the gathers'
-    backward on the paths that train (not a ground-truth render, not an
-    eval)."""
+    there did not: the raster, the stencil and the MC shade on every path
+    (each renders and shades), the gathers' backward on the paths that
+    train (not a ground-truth render, not an eval)."""
     def due(path: str, kernel: str) -> bool:
         return kernel != "gather_rows" or (path.endswith(("train", "train_resumed")) and "gt" not in path)
     return [f"{path}: {k} not launched" for path, c in launches.items() for k, v in c.items()
@@ -2514,6 +2799,7 @@ def main() -> int:
     from gshell_tpu_torch.ops import denoiser as dn
     from gshell_tpu_torch.ops import math as gm
     from gshell_tpu_torch.ops import rasterize as rz
+    from gshell_tpu_torch.train.setup import kernel_launches
     from gshell_tpu_torch.utils import kernels
     from gshell_tpu_torch.utils.synthetic import crowded_tile_mesh
 
@@ -2591,6 +2877,16 @@ def main() -> int:
                     "bound_ms_c3": st3["bound_ms"]})
 
     gather_bwd = gather_backward_check(smi)
+    mc_shade = mc_shade_check(smi)
+    tc, fc = mc_shade["cells"]
+    results.append({"name": "mc_shade", "route": "cuda", "source": "gshell_tpu_torch/csrc/mc_shade.cu",
+                    "replaces": "none (the port's eager walk, gshell_tpu_torch/ops/shade.py _MCAccumulate)",
+                    "max_abs_err": max(max(c["errors"].values()) for c in mc_shade["cells"]),
+                    "error": "relative norm of the forward and of each input's cotangent",
+                    "ms": tc["fwd_ms"], "bwd_ms": tc["bwd_ms"], "bound_ms": tc["fwd_bound_ms"],
+                    "bound_by": tc["fwd_bound_by"], "bwd_bound_ms": tc["bwd_bound_ms"], "library_ms": None,
+                    "eager_ms": tc["held_plain_ms"], "plain_ms": tc["held_plain_ms"],
+                    **{f"{k}_flexi80": fc[k] for k in ("fwd_ms", "bwd_ms", "fwd_bound_ms", "bwd_bound_ms")}})
 
     # ---- phase 5: a small step on the card vs the CPU plain path -------------
     _small_step_reference(dev)
@@ -2598,8 +2894,7 @@ def main() -> int:
     # ---- phase 6: the slice ---------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rz.stage_b_calls = 0
-    dn.bilateral_launches = 0
+    zero_launches()
     wp_steps = []
     for i in range(N_STEPS):
         sb0, bl0 = rz.stage_b_calls, dn.bilateral_launches
@@ -2624,8 +2919,9 @@ def main() -> int:
         if sb != BATCH or bl != 2 * BATCH:
             raise RuntimeError(f"step {i}: launches stage_b {sb} (want {BATCH}), "
                                f"bilateral {bl} (want {2 * BATCH})")
-    by_path = {"train_step": {"rasterize_stage_b": rz.stage_b_calls,
-                              "bilateral_accumulate": dn.bilateral_launches}}
+    by_path = {"train_step": kernel_launches()}
+    if by_path["train_step"]["mc_shade"] <= 0:
+        raise RuntimeError(f"phase 6 launched no MC shade kernel: {by_path['train_step']}")
 
     # ---- phase 7: the command-line path at full width --------------------------
     del rec, state, draws, target, geo, mesh, faces_c, fvalid_c, v_nrm, bufs, bins, crowd
@@ -2641,6 +2937,8 @@ def main() -> int:
     flexi = flexi_path(smi, dev)
     absorb_path(results, by_path, flexi["launches"], flexi.pop("held_max_abs_err"))
     for r in results:
+        if r["name"] not in flexi["kernels_1024"]:
+            continue
         k = flexi["kernels_1024"][r["name"]]
         r.update({"ms_1024": k["ms"], "eager_ms_1024": k["eager_ms"], "plain_ms_1024": k["plain_ms"],
                   "bound_ms_1024": k["bound_ms"], "bound_by_1024": k["bound_by"]})
@@ -2667,6 +2965,8 @@ def main() -> int:
     for r in results:
         for name in ("banded_tets", "banded_flexi"):
             k = distributed[name]["kernels"]
+            if r["name"] not in k:
+                continue
             tag = "{}x{}".format(*k["shape"])
             r.update({f"{key}_{tag}": k[r["name"]][key] for key in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                                                      "bound_by")})
@@ -2685,6 +2985,7 @@ def main() -> int:
     print(json.dumps({"bench": benches}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"gather_backward": gather_bwd}))
+    print(json.dumps({"mc_shade": mc_shade}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,17 +10,33 @@ template SDF), or by marching the template SDF along the ray
 (:class:`SdfVisibility`).  :class:`_MCAccumulate` keeps the sample loop's
 memory O(pixels): its backward re-walks the samples and reuses the
 visibilities saved by the forward.
+
+On the card the walk is the hand-written kernel pair ``csrc/mc_shade.cu``
+(:class:`_MCShade`): one thread a pixel row walks every sample in
+registers, forward and in reverse, with the eager walk's arithmetic and
+rounding points, the shadow field's lookup or the SDF march included; it
+takes f32 pixel rows, pool and marcher grid and an f32 or bf16 light, and
+:func:`env_shade` raises on anything else there.  On the CPU the eager walk
+runs, which is also the plain version the kernel is held to.
+
+Counters: ``mc_shade_launches`` counts the kernel pair's launches (a
+forward walk 1, a reverse walk one a block of samples); :func:`shade_stats`
+reads the walks each path took and the rows the kernel shaded and skipped
+(it synchronizes: call it outside a step).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..render.light import EnvLight, eval_light, sample_light
+from ..utils import kernels
 from ..utils.spans import span
 from .bsdf import lambert, pbr_specular
 from .gather import gather_rows
@@ -425,6 +441,7 @@ class _MCAccumulate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, walk, *tensors):
+        _walks["eager"] += 1
         a = dict(zip(walk.names, tensors))
         total, auxs = None, []
         for j in range(walk.n_blocks):
@@ -456,6 +473,150 @@ class _MCAccumulate(torch.autograd.Function):
                 acc = [x if gi is None else x + gi for x, gi in zip(acc, gs)]
         it = iter(acc)
         return (None,) + tuple(next(it) if nd else None for nd in need)
+
+
+# Walks taken by each path (plain integers) and, per device, the kernel's
+# rows shaded and rows skipped by the mask (int64 (2,), added on the card).
+mc_shade_launches = 0
+_walks = {"kernel": 0, "eager": 0}
+_rows: dict = {}
+
+
+def _rows_on(device) -> torch.Tensor:
+    t = _rows.get(device)
+    if t is None:
+        t = _rows[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return t
+
+
+def shade_stats() -> dict:
+    """{"kernel_walks", "eager_walks", "rows_shaded", "rows_skipped"} since
+    the process started: forward walks of :func:`env_shade` on each path,
+    and the rows the kernel's forward walks shaded and skipped (mask 0),
+    summed over devices (synchronizes each device it reads)."""
+    shaded = skipped = 0
+    for t in _rows.values():
+        a, b = t.tolist()
+        shaded, skipped = shaded + a, skipped + b
+    return {"kernel_walks": _walks["kernel"], "eager_walks": _walks["eager"], "rows_shaded": shaded,
+            "rows_skipped": skipped}
+
+
+def takes_kernel(device: torch.device, row_dtypes, light_dtype, visibility) -> bool:
+    """Whether :func:`env_shade` walks with the hand kernel: on the card,
+    always (raises ``TypeError`` where it cannot take the inputs: pixel rows
+    and pool not f32, a light neither f32 nor bf16, a marcher's grid not
+    f32); on the CPU, never."""
+    if device.type != "cuda":
+        return False
+    bad = [str(d) for d in row_dtypes if d != torch.float32]
+    if light_dtype not in (torch.float32, torch.bfloat16):
+        bad.append(f"light {light_dtype}")
+    if isinstance(visibility, SdfVisibility) and visibility.grid.dtype != torch.float32:
+        bad.append(f"marcher grid {visibility.grid.dtype}")
+    if bad:
+        raise TypeError(f"env_shade on the card takes f32 pixel rows, pool and marcher grid and an f32 or bf16 "
+                        f"light; got {', '.join(bad)}")
+    return True
+
+
+def _kernel_args(walk, rows, pool, light_packed) -> kernels.McShadeArgs:
+    """The kernel's arguments for a walk: the draws and constants as the
+    eager walk casts them (Python floats to f32)."""
+    a = kernels.McShadeArgs()
+    vp = ctypes.c_void_p
+    a.rows, a.P = vp(rows.data_ptr()), rows.shape[0]
+    a.u, a.c = vp(walk.u.data_ptr()), vp(walk.c.data_ptr())
+    a.pool, a.n_pool = vp(pool.data_ptr()), pool.shape[1]
+    a.light, a.light_bf16 = vp(light_packed.data_ptr()), int(light_packed.dtype == torch.bfloat16)
+    a.diffuse_only, a.n = int(walk.diffuse_only), walk.n
+    a.lh, a.lw = light_packed.shape[0], light_packed.shape[1]
+    a.inv_n2, a.strata = 1.0 / walk.n2, 1.0 / walk.n
+    a.ss, a.omss = walk.shadow_scale, 1.0 - walk.shadow_scale
+    a.hw = float(a.lh * a.lw)
+    vis = walk.vis
+    if isinstance(vis, ShadowField):
+        a.field, a.ko, a.words = vp(vis.field.data_ptr()), vis.ko, vis.words
+    elif vis is not None:
+        a.grid, a.n_steps, a.trilinear = vp(vis.grid.data_ptr()), vis.n_steps, int(vis.mode == "trilinear")
+        a.dt, a.thr, a.hi = vis.dt, vis.threshold, vis.r - 1e-4
+    if vis is not None:
+        a.r, a.t0 = vis.r, vis.t0
+        a.amin[:], a.ascale[:] = vis.aabb_min, vis.aabb_scale
+    a.k = walk.block_size
+    return a
+
+
+def mc_walk_kernel(walk, mask, tensors):
+    """The kernel's forward walk: (P, 6) diffuse and specular sums, rows with
+    ``mask`` 0 left 0.  Returns (out, rows), the packed pixel rows the
+    reverse reads."""
+    global mc_shade_launches
+    a = dict(zip(walk.names, tensors))
+    rows = torch.cat([a["gb_normal"], a["kd"], a["ks"][:, 2:3], a["wo"], a["alpha"], a["p_diffuse"],
+                      walk.ro, walk.rot, mask.to(torch.float32)], dim=1).contiguous()
+    light = a["light_packed"].contiguous()
+    out = torch.empty((rows.shape[0], 6), dtype=torch.float32, device=rows.device)
+    args = _kernel_args(walk, rows, a["pool"].contiguous(), light)
+    args.out, args.stats = ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(_rows_on(rows.device).data_ptr())
+    kernels.check(kernels.lib().gs_mc_shade_fwd(ctypes.byref(args), ctypes.c_void_p(kernels.stream_ptr(rows))),
+                  "mc_shade_fwd")
+    mc_shade_launches += 1
+    return out, rows
+
+
+def mc_rewalk_kernel(walk, rows, pool, light, g, need=(True,) * 8):
+    """The kernel's reverse walk, one launch a block of samples: the
+    cotangents of the walk's eight inputs (``_ShadeWalk.names``) for the
+    (P, 6) cotangent ``g``, None where ``need`` is false; the pool's and the
+    light's are computed only if needed."""
+    global mc_shade_launches
+    p, dev = rows.shape[0], rows.device
+    g_rows = torch.zeros((p, 12), dtype=torch.float32, device=dev)
+    g_pool = torch.zeros_like(pool) if need[6] else None
+    g_light = torch.zeros_like(light) if need[7] else None
+    g = g.contiguous()
+    args = _kernel_args(walk, rows, pool, light)
+    vp = ctypes.c_void_p
+    args.g, args.g_rows = vp(g.data_ptr()), vp(g_rows.data_ptr())
+    if g_pool is not None:
+        args.g_pool = vp(g_pool.data_ptr())
+    if g_light is not None:
+        scratch = torch.zeros(light.shape, dtype=torch.float32, device=dev)
+        args.scratch, args.g_light = vp(scratch.data_ptr()), vp(g_light.data_ptr())
+    stream = vp(kernels.stream_ptr(rows))
+    for j in range(walk.n_blocks):
+        args.j0 = j * walk.block_size
+        kernels.check(kernels.lib().gs_mc_shade_bwd(ctypes.byref(args), stream), "mc_shade_bwd")
+        mc_shade_launches += 1
+    g_ks = torch.cat([torch.zeros((p, 2), dtype=torch.float32, device=dev), g_rows[:, 6:7]], dim=1)
+    grads = (g_rows[:, 0:3], g_rows[:, 3:6], g_ks, g_rows[:, 7:10], g_rows[:, 10:11], g_rows[:, 11:12],
+             g_pool, g_light)
+    return tuple(x if nd else None for x, nd in zip(grads, need))
+
+
+class _MCShade(torch.autograd.Function):
+    """:class:`_MCAccumulate` as the hand kernel pair ``csrc/mc_shade.cu``.
+    The forward walks every sample in one launch; the backward re-walks one
+    block of ``walk.block_size`` samples a launch, as the eager re-walk sums
+    them, in the span ``recon.shade_backward``.  Rows with ``mask`` 0 read
+    0 and send no cotangent (``env_shade`` zeroes them on the way out)."""
+
+    @staticmethod
+    def forward(ctx, walk, mask, *tensors):
+        _walks["kernel"] += 1
+        out, rows = mc_walk_kernel(walk, mask, tensors)
+        ctx.walk = walk
+        ctx.save_for_backward(rows, tensors[6].contiguous(), tensors[7].contiguous())
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        rows, pool, light = ctx.saved_tensors
+        with span("recon.shade_backward"):
+            grads = mc_rewalk_kernel(ctx.walk, rows, pool, light, g, ctx.needs_input_grad[2:])
+        return (None, None) + grads
 
 
 class ShadeBuffers(NamedTuple):
@@ -566,7 +727,9 @@ def env_shade(draws, mask, ro, gb_pos, gb_normal, view_pos, kd, ks, light: EnvLi
     """(demodulated diffuse, specular) radiance per pixel; inputs are
     flattened pixel rows (P, 3)/(P, 1).  Draws: ``rot`` (P, 2), ``pool``
     (n², light_pool, 2), and per step s ``u/step{s}`` (P, 3) and
-    ``c/step{s}`` (the pool rotation)."""
+    ``c/step{s}`` (the pool rotation).  On the card the walk is the hand
+    kernel pair (:func:`takes_kernel` says what it takes); on the CPU, the
+    eager walk."""
     dev = gb_pos.device
     p = gb_pos.shape[0]
     n2 = n_samples_x * n_samples_x
@@ -602,6 +765,10 @@ def env_shade(draws, mask, ro, gb_pos, gb_normal, view_pos, kd, ks, light: EnvLi
                       ro.detach(), rot, u, c)
     args = dict(gb_normal=gb_normal, kd=kd, ks=ks, wo=wo_pre, alpha=alpha_pre,
                 p_diffuse=p_diffuse_pre, pool=pool, light_packed=light_packed)
-    acc = _MCAccumulate.apply(walk, *[args[n] for n in _ShadeWalk.names])
+    tensors = [args[n] for n in _ShadeWalk.names]
+    if takes_kernel(gb_pos.device, [t.dtype for t in tensors[:7]] + [ro.dtype], light_packed.dtype, visibility):
+        acc = _MCShade.apply(walk, mask.reshape(p, 1).detach(), *tensors)
+    else:
+        acc = _MCAccumulate.apply(walk, *tensors)
     m = mask.reshape(p, 1).to(acc.dtype)
     return ShadeBuffers(diffuse=acc[:, :3] * m, specular=acc[:, 3:] * m)

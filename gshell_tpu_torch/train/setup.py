@@ -14,6 +14,7 @@ from ..geometry.mlp import MLPConfig
 from ..ops import denoiser as dn
 from ..ops import gather as ga
 from ..ops import rasterize as rz
+from ..ops import shade as sh
 from ..render.light import create_trainable_env_rnd
 from ..render.material import MLPTexture3DConfig, default_kd_ks_min_max, init_mlp_texture
 from ..render.render import RenderFlags
@@ -32,7 +33,7 @@ def kernel_launches() -> dict:
     """The hand kernels' launch counters (they stay 0 on the CPU, where the
     plain versions run)."""
     return {"rasterize_stage_b": rz.stage_b_calls, "bilateral_accumulate": dn.bilateral_launches,
-            "gather_rows": ga.gather_bwd_launches}
+            "gather_rows": ga.gather_bwd_launches, "mc_shade": sh.mc_shade_launches}
 
 
 def launches_since(start: dict) -> dict:

@@ -34,6 +34,23 @@ _lib = None
 build_seconds: float | None = None
 
 
+class McShadeArgs(ctypes.Structure):
+    """``mc::Args`` of ``csrc/mc_shade.cuh``, field for field."""
+
+    _vp, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    _fields_ = [
+        ("rows", _vp), ("P", _i64), ("u", _vp), ("c", _vp), ("pool", _vp), ("n_pool", _i64),
+        ("light", _vp), ("light_bf16", _i32), ("diffuse_only", _i32), ("n", _i32), ("lh", _i32), ("lw", _i32),
+        ("inv_n2", _f32), ("strata", _f32), ("ss", _f32), ("omss", _f32), ("hw", _f32),
+        ("field", _vp), ("grid", _vp), ("ko", _i32), ("r", _i32), ("words", _i32), ("n_steps", _i32),
+        ("trilinear", _i32), ("t0", _f32), ("dt", _f32), ("thr", _f32), ("hi", _f32),
+        ("amin", _f32 * 3), ("ascale", _f32 * 3),
+        ("out", _vp), ("stats", _vp),
+        ("g", _vp), ("g_rows", _vp), ("g_pool", _vp), ("scratch", _vp), ("g_light", _vp),
+        ("j0", _i32), ("k", _i32),
+    ]
+
+
 def _sources() -> list[str]:
     return sorted(
         os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cu")
@@ -101,6 +118,10 @@ def lib() -> ctypes.CDLL:
         i64 = ctypes.c_longlong
         handle.gs_scatter_rows.argtypes = [vp, i32, vp, i64, vp, i64, i32, vp, vp]
         handle.gs_scatter_rows.restype = i32
+        handle.gs_mc_shade_fwd.argtypes = [ctypes.POINTER(McShadeArgs), vp]
+        handle.gs_mc_shade_fwd.restype = i32
+        handle.gs_mc_shade_bwd.argtypes = [ctypes.POINTER(McShadeArgs), vp]
+        handle.gs_mc_shade_bwd.restype = i32
         _lib = handle
     return _lib
 

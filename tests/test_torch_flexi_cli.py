@@ -112,7 +112,7 @@ def test_flexi_eval_writes_metrics_psnr_and_chamfer(files, runs, monkeypatch):
     assert math.isfinite(res["psnr"]) and res["psnr"] > 5.0
     assert math.isfinite(res["chamfer"]) and res["chamfer"] > 0.0
     assert res["launches"]["synthetic"] == {"rasterize_stage_b": 0, "bilateral_accumulate": 0,
-                                            "gather_rows": 0}  # the CPU
+                                            "gather_rows": 0, "mc_shade": 0}  # the CPU
 
 
 @pytest.mark.parametrize("config", ["tiny.json", "tiny_flexi.json"])
