@@ -125,24 +125,19 @@ Runs, in order:
      group to ``DIST_GRAD_RTOL``; (c) phase 9's FlexiCubes state with
      spatial (2, 2), one step of 4 cells of 544x1024, both kernels held and
      timed there; a ``{"distributed": ...}`` line.
- 14. the measurement entry points, each ``main`` in process with its
-     standard output captured (one JSON line, the JAX twin's metric
-     string): ``bench --one 512,64,8,2`` counted and tapped as phase 7's
-     entry points (state steps 0 to 21 from the pretrained state; every
-     timed step launches stage B BATCH times and the stencil 2 * BATCH
-     times; the first and last launches held), its step beside phase 6's
-     at state step 1000; ``bench_extract 64`` and ``80`` (FlexiCubes at
-     min(RES, 80)) and ``bench_diffusion 128 1 3``, which launch neither
-     kernel; a ``{"bench": ...}`` line.
 
-Prints a JSON line of per-kernel results (with ``bound_ms``, the least time
-the card could take for the same work, see ``_bound_ms``), the nvidia-smi
-line, and last
+Launches are counted where every hand kernel's launch is checked:
+``gshell_tpu_torch/utils/kernels.py`` (``check``, read by
+``kernel_launches()``, under the keys ``rasterize_stage_b``,
+``bilateral_accumulate``, ``gather_rows`` and ``mc_shade``).
+
+The port is measured by the benchmark (``python3 -m benchmark.run``), not
+here.  Prints a JSON line of per-kernel results (with ``bound_ms``, the
+least time the card could take for the same work, see ``_bound_ms``), the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
 ok line).  Usage: ``python3 chip_smoke.py`` from the repository root.
 """
-import contextlib
-import io
 import json
 import math
 import os
@@ -657,18 +652,66 @@ def _small_step_reference(dev) -> dict:
     return {"loss_rel": rel, **read}
 
 
-def working_point(dev, seed: int = SEED):
-    """The slice at the working point, on ``dev``: ``Reconstructor`` with the
-    settings of the port's bench (``gshell_tpu_torch.bench``, the JAX
-    package's bench.py values), its state after 1000 SDF pretrain steps
-    set to step ``shadow_ramp_iters`` (shadows and denoiser sigma 2 live),
-    the draw source, and the bench's synthetic disk target at batch BATCH."""
+def working_point_configs():
+    """(GeometryConfig, MLPTexture3DConfig, RenderFlags, TrainConfig, SDF
+    pretrain steps) of the working point: RES², tet grid GRID, SPP samples,
+    batch BATCH, an MLP SDF with 16,384 eikonal samples, views rendered
+    with their residuals kept ("map"), PBR shading with a shade budget of
+    0.5, a jitter tap of 0.25 and MC blocks of 8, the denoiser on, shadows
+    on, the default hash grid (the JAX package's bench.py values)."""
+    from gshell_tpu_torch.geometry.geometry import GeometryConfig
+    from gshell_tpu_torch.ops.hashgrid import HashGridConfig
+    from gshell_tpu_torch.render.material import MLPTexture3DConfig, default_kd_ks_min_max
+    from gshell_tpu_torch.render.render import RenderFlags
+    from gshell_tpu_torch.train.reconstruct import TrainConfig
+
+    gcfg = GeometryConfig(grid_res=GRID, use_sdf_mlp=True, use_eikonal=True, n_eikonal_samples=16384,
+                          total_iters=5000, view_batch_mode="map")
+    mat_cfg = MLPTexture3DConfig(channels=6, hash=HashGridConfig(), min_max=default_kd_ks_min_max())
+    flags = RenderFlags(resolution=(RES, RES), n_samples=SPP, bsdf="pbr", use_denoiser=True, shade_budget=0.5,
+                        jitter_tap_frac=0.25, mc_block=8)
+    return gcfg, mat_cfg, flags, TrainConfig(batch=BATCH, use_shadows=True), 1000
+
+
+def disk_target(res: int, batch: int, device) -> dict:
+    """The working point's synthetic target: a grey disk of radius 0.3·res
+    on black, seen from (0, 0, 2.5), the same view ``batch`` times."""
     import torch
 
-    from gshell_tpu_torch import bench
+    from gshell_tpu_torch.ops import math as gm
+
+    proj = gm.perspective(math.radians(45.0), 1.0, 0.1, 1000.0, device=device)
+    view = gm.lookat(torch.tensor([0.0, 0.0, 2.5], device=device), torch.zeros(3, device=device),
+                     torch.tensor([0.0, 1.0, 0.0], device=device))
+    ys, xs = torch.meshgrid(torch.arange(res, device=device), torch.arange(res, device=device), indexing="ij")
+    r = torch.sqrt((xs - res / 2) ** 2 + (ys - res / 2) ** 2)
+    mask = (r < 0.3 * res).float()[None, ..., None].repeat(batch, 1, 1, 1)
+    return {
+        "mvp": (proj @ view)[None].repeat(batch, 1, 1),
+        "campos": torch.tensor([[0.0, 0.0, 2.5]], device=device).repeat(batch, 1),
+        "img": torch.cat([torch.ones((batch, res, res, 3), device=device) * 0.5 * mask, mask], -1),
+        "background": torch.zeros((batch, res, res, 3), device=device),
+    }
+
+
+def working_point(dev, seed: int = SEED):
+    """The slice at the working point (:func:`working_point_configs`), on
+    ``dev``: the ``Reconstructor``, its state after 1000 SDF pretrain steps
+    set to step ``shadow_ramp_iters`` (shadows and denoiser sigma 2 live),
+    the draw source, and the disk target (:func:`disk_target`) at batch
+    BATCH."""
+    import torch
+
+    from gshell_tpu_torch.geometry.geometry import GShellGeometry
+    from gshell_tpu_torch.train.reconstruct import Reconstructor
+    from gshell_tpu_torch.utils.rng import TorchDraws
 
     t0 = time.time()
-    rec, state, draws, target = bench.build(False, RES, GRID, SPP, BATCH, dev, seed)
+    gcfg, mat_cfg, flags, tcfg, pretrain = working_point_configs()
+    rec = Reconstructor(GShellGeometry(gcfg, dev), mat_cfg, flags, tcfg)
+    draws = TorchDraws(torch.Generator(dev).manual_seed(seed))
+    state = rec.init_state(draws.child("init"), pretrain_steps=pretrain)
+    target = disk_target(RES, BATCH, dev)
     torch.cuda.synchronize()
     print(f"init_state (1000 pretrain steps): {time.time() - t0:.2f} s")
     state.step = rec.tcfg.shadow_ramp_iters
@@ -747,13 +790,12 @@ KERNELS_HELD = {"rasterize_stage_b", "bilateral_accumulate", "mc_shade"}
 
 
 def zero_launches() -> None:
-    """Every hand kernel's launch counter (``kernel_launches()``) to 0."""
-    from gshell_tpu_torch.ops import denoiser as dn
-    from gshell_tpu_torch.ops import gather as ga
-    from gshell_tpu_torch.ops import rasterize as rz
-    from gshell_tpu_torch.ops import shade as sh
+    """Every hand kernel's launch count to 0: the one dict of
+    ``gshell_tpu_torch/utils/kernels.py`` that ``kernels.check`` adds each
+    launch to and ``kernel_launches()`` reads."""
+    from gshell_tpu_torch.utils import kernels
 
-    rz.stage_b_calls = dn.bilateral_launches = ga.gather_bwd_launches = sh.mc_shade_launches = 0
+    kernels.zero_launches()
 
 
 def _mc_window(walk, live):
@@ -932,7 +974,7 @@ class EntryPoints:
         import torch
 
         from gshell_tpu_torch.ops import shade as sh
-        from gshell_tpu_torch.train.setup import kernel_launches
+        from gshell_tpu_torch.utils.kernels import kernel_launches
 
         self.taps.clear()
         zero_launches()
@@ -1772,7 +1814,8 @@ def textured_round_trip(run: str, cfg_path: str, dev, mvp, campos) -> dict:
     from gshell_tpu_torch.render.render import render_mesh
     from gshell_tpu_torch.render.texture import create_trainable
     from gshell_tpu_torch.train.reconstruct import load_state
-    from gshell_tpu_torch.train.setup import kernel_launches, reconstructor_from_flags
+    from gshell_tpu_torch.train.setup import reconstructor_from_flags
+    from gshell_tpu_torch.utils.kernels import kernel_launches
     from gshell_tpu_torch.utils.config import load_flags
     from gshell_tpu_torch.utils.rng import TorchDraws
 
@@ -1981,7 +2024,7 @@ def legacy_sources(smi: str, dev) -> dict:
     from gshell_tpu_torch.ops.mesh_ops import sample_surface
     from gshell_tpu_torch.ops.shade import apply_visibility, make_sdf_visibility
     from gshell_tpu_torch.train.reconstruct import Reconstructor, TrainConfig
-    from gshell_tpu_torch.train.setup import kernel_launches
+    from gshell_tpu_torch.utils.kernels import kernel_launches
 
     rec, state, draws, target = working_point(dev)
     with torch.no_grad():
@@ -2267,7 +2310,8 @@ def banded_steps(job: dict, group) -> tuple:
     import torch
 
     from gshell_tpu_torch.train.reconstruct import Reconstructor, _leaves, load_state
-    from gshell_tpu_torch.train.setup import kernel_launches, reconstructor_from_flags
+    from gshell_tpu_torch.train.setup import reconstructor_from_flags
+    from gshell_tpu_torch.utils.kernels import kernel_launches
     from gshell_tpu_torch.utils.config import load_flags
     from gshell_tpu_torch.utils.rng import TorchDraws
 
@@ -2661,100 +2705,6 @@ def distributed_path(smi: str, dev) -> dict:
     return rec_out
 
 
-# Phase 14: the measurement entry points (the port's bench.py, bench_extract.py
-# and tools/bench_diffusion.py), each ``main`` in process with its standard
-# output captured: one JSON line each, with the JAX twin's metric string.
-BENCH_ARGV = ["--one", f"{RES},{GRID},{SPP},{BATCH}"]
-EXTRACT_ARGVS = (["64"], ["80"])  # FlexiCubes runs at min(RES, 80): 64, then 80
-DIFFUSION_BENCH_ARGV = ["128", "1", "3"]
-
-
-def _captured(fn, argv, counted=None) -> tuple:
-    """(what ``fn(argv)`` returns, its one stdout line parsed); ``counted``
-    (an ``EntryPoints``) runs it with the launch counts and taps."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        out = counted.counted(fn, argv) if counted is not None else fn(argv)
-    lines = buf.getvalue().splitlines()
-    if len(lines) != 1:
-        raise RuntimeError(f"{fn.__module__} printed {len(lines)} lines on stdout, not one: {lines}")
-    return out, json.loads(lines[0])
-
-
-def bench_path(smi: str, dev, wp_steps: list) -> dict:
-    """Phase 14: ``bench.main`` at the working point (state steps 0 to 21 from
-    the pretrained state, against phase 6's steps at state step 1000,
-    ``wp_steps``), counted and tapped as the CLI's entry points are, each
-    timed step launching stage B ``BATCH`` times, the stencil ``2 *
-    BATCH`` times and the gathers' backward, the first and last launches
-    held; then ``bench_extract.main`` at 64 and 80 and
-    ``bench_diffusion.main``, which launch neither the raster nor the
-    stencil kernel.  Returns the phase's record; raises on any failed
-    check."""
-    import torch
-
-    from gshell_tpu_torch import bench, bench_diffusion, bench_extract
-    from gshell_tpu_torch.train.setup import kernel_launches
-
-    t_phase = time.time()
-    dv = ["--device", str(dev)]
-    with KernelTaps() as taps:
-        ep = EntryPoints(taps)
-        run, line = _captured(bench.main, BENCH_ARGV + dv, ep)
-        launches = {"bench": kernel_launches()}
-        ep.hold("bench (warm-up step: first launch; the FLOP-counted step: last)", run)
-    want = {"rasterize_stage_b": BATCH, "bilateral_accumulate": 2 * BATCH}
-    bad = [f"bench timed step {i + 1}: launches {c}, want {want}, the gathers' backward and the MC shade"
-           for i, c in enumerate(run["step_launches"])
-           if {k: c[k] for k in want} != want or c["gather_rows"] <= 0 or c["mc_shade"] <= 0]
-    metric = f"gshell_train_step_iters_per_sec(res{RES},grid{GRID},spp{SPP},b{BATCH})"
-    if line["metric"] != metric or not (_finite(line["value"]) and line["value"] > 0):
-        bad.append(f"bench line {line}")
-    print(f"bench line: {json.dumps(line)}  [{smi}]")
-    print(f"bench at state steps 1-20: {1.0 / line['value']:.3f} s/step against phase 6's "
-          f"{[round(x, 3) for x in wp_steps]} s at state step 1000; warm-up (state step 0) "
-          f"{line['compile_sec']:.3f} s; peak {run['peak_gib']} GiB; loss {run['loss']:.5f}; launches by phase "
-          f"{json.dumps(run['launches'])}  [{smi}]")
-
-    c0 = kernel_launches()
-    extraction = {}
-    for argv in EXTRACT_ARGVS:
-        torch.cuda.empty_cache()
-        t0 = time.time()
-        ext, ext_line = _captured(bench_extract.main, argv + dv)
-        ext["seconds"] = time.time() - t0
-        print(f"bench_extract {argv[0]} line: {json.dumps(ext_line)}; FlexiCubes res {ext['flexicubes_res']} "
-              f"{ext['flexicubes_ms']:.3f} ms, pbr_bsdf [8,512,512] fwd {ext['pbr_bsdf_fwd_ms']:.3f} ms bwd "
-              f"{ext['pbr_bsdf_bwd_ms']:.3f} ms; {ext['seconds']:.1f} s  [{smi}]")
-        if ext_line["metric"] != f"gshell_tet_extraction_ms(res{argv[0]})" or not ext_line["value"] > 0:
-            bad.append(f"bench_extract line {ext_line}")
-        extraction[argv[0]] = ext
-
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    _, diff_line = _captured(bench_diffusion.main, DIFFUSION_BENCH_ARGV + dv)
-    diff_s = time.time() - t0
-    d = int(DIFFUSION_BENCH_ARGV[0])
-    print(f"bench_diffusion line: {json.dumps(diff_line)}; {diff_s:.1f} s  [{smi}]")
-    if diff_line["metric"] != f"gmeshdiffusion_train_step(grid{d},occ{2 * d},b{DIFFUSION_BENCH_ARGV[1]})" \
-            or not diff_line["value"] > 0:
-        bad.append(f"bench_diffusion line {diff_line}")
-    if any(kernel_launches()[k] != c0[k] for k in (*want, "mc_shade")):
-        bad.append(f"bench_extract / bench_diffusion launched a hand kernel: {c0} -> {kernel_launches()}")
-
-    rec_out = {"train_step": line, "extraction": extraction, "diffusion": diff_line,
-               "phase6_steps_s_at_step_1000": wp_steps, "bench_peak_gib": run["peak_gib"],
-               "bench_launches_by_phase": run["launches"], "bench_seconds": run["seconds"],
-               "launches": launches, "held_max_abs_err": ep.held}
-    rec_out["seconds"] = time.time() - t_phase
-    print(f"bench phase: {rec_out['seconds']:.1f} s")
-    if set(ep.held) != KERNELS_HELD:
-        bad.append(f"held only {sorted(ep.held)} against the plain versions")
-    if bad:
-        raise RuntimeError("phase 14 (measurement entry points) failed: " + "; ".join(bad))
-    return rec_out
-
-
 def unlaunched(launches: dict) -> list:
     """The paths (name → kernel → launches) on which a kernel that should run
     there did not: the raster, the stencil and the MC shade on every path
@@ -2799,8 +2749,8 @@ def main() -> int:
     from gshell_tpu_torch.ops import denoiser as dn
     from gshell_tpu_torch.ops import math as gm
     from gshell_tpu_torch.ops import rasterize as rz
-    from gshell_tpu_torch.train.setup import kernel_launches
     from gshell_tpu_torch.utils import kernels
+    from gshell_tpu_torch.utils.kernels import kernel_launches, launches_since
     from gshell_tpu_torch.utils.synthetic import crowded_tile_mesh
 
     dev = torch.device("cuda:0")
@@ -2895,16 +2845,15 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    wp_steps = []
     for i in range(N_STEPS):
-        sb0, bl0 = rz.stage_b_calls, dn.bilateral_launches
+        c0 = kernel_launches()
         t0 = time.time()
         m = rec.train_step(state, draws.child(f"step{i}"), target)
         torch.cuda.synchronize()
         dt = time.time() - t0
-        wp_steps.append(dt)
         m = {k: float(v) for k, v in m.items()}
-        sb, bl = rz.stage_b_calls - sb0, dn.bilateral_launches - bl0
+        step = launches_since(c0)
+        sb, bl = step["rasterize_stage_b"], step["bilateral_accumulate"]
         print(f"step {i}: total {m['total']:.6f} img {m['img_loss']:.6f} reg {m['reg_loss']:.6f} "
               f"nonfinite_grads {int(m['nonfinite_grads'])} sdf_net |grad| {m['sdf_net_grad_norm']:.4e} "
               f"n_faces {int(m['n_faces'])} "
@@ -2971,19 +2920,13 @@ def main() -> int:
             r.update({f"{key}_{tag}": k[r["name"]][key] for key in ("ms", "eager_ms", "plain_ms", "bound_ms",
                                                                      "bound_by")})
 
-    # ---- phase 14: the measurement entry points ---------------------------------
-    torch.cuda.empty_cache()
-    benches = bench_path(smi, dev, wp_steps)
-    absorb_path(results, by_path, benches.pop("launches"), benches.pop("held_max_abs_err"))
-
     print(json.dumps({"diffusion": diffusion}))
     print(json.dumps({"flexicubes": flexi}))
     print(json.dumps({"second_layer": second}))
     print(json.dumps({"textured": textured}))
     print(json.dumps({"fields": fields}))
     print(json.dumps({"distributed": distributed}))
-    print(json.dumps({"bench": benches}))
-    print(json.dumps({"kernels": results}))
+    print(json.dumps({"kernels": results, "launches_counted_by": "gshell_tpu_torch/utils/kernels.py check()"}))
     print(json.dumps({"gather_backward": gather_bwd}))
     print(json.dumps({"mc_shade": mc_shade}))
     print(smi)

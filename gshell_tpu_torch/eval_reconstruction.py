@@ -32,10 +32,10 @@ from .render.light import update_pdf
 from .render.mesh import load_obj, unit_size
 from .render.render import render_mesh
 from .train.reconstruct import TrainConfig, load_state
-from .train.setup import (add_bool, gt_light_material, kernel_launches, launches_since,
-                          reconstructor_from_flags, resolve_device)
+from .train.setup import add_bool, gt_light_material, reconstructor_from_flags, resolve_device
 from .train.validate import chamfer_distance, validate
 from .utils.config import load_flags
+from .utils.kernels import kernel_launches, launches_since
 from .utils.rng import TorchDraws
 
 PROG = "gshell_tpu_torch.eval_reconstruction"

@@ -29,7 +29,7 @@ from ..render.render import RenderFlags, render_mesh, render_second_layer
 from ..utils.spans import span
 from .gshell_tets import GShellTets
 from .mlp import MLPConfig, apply_mlp, init_mlp
-from .tet_grid import build_tet_grid, default_capacities
+from .tet_grid import build_tet_grid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +67,6 @@ class GeometryConfig:
     # MLP fields: evaluate the lattice field without gradient and the MLP
     # again at the crossing-edge endpoints (JAX's default)
     lazy_field_grad: bool = True
-    capacity_safety: float = 1.0
     max_tets: Optional[int] = None
     max_verts: Optional[int] = None
     # under a banded render over a process group, split the extractor's
@@ -99,13 +98,7 @@ class GShellGeometry:
         self.cfg = cfg
         self.device = torch.device(device)
         self.grid = build_tet_grid(cfg.grid_res, build_topology=False)
-        mt, mv = cfg.max_tets, cfg.max_verts
-        if (mt is None or mv is None) and cfg.capacity_safety != 1.0:
-            d_t, d_v = default_capacities(
-                self.grid.res, self.grid.n_tets, self.grid.n_edges, safety=cfg.capacity_safety
-            )
-            mt, mv = mt or d_t, mv or d_v
-        self.extractor = GShellTets(self.grid, self.device, mt, mv)
+        self.extractor = GShellTets(self.grid, self.device, cfg.max_tets, cfg.max_verts)
         self.boxscale = torch.tensor(cfg.boxscale, dtype=torch.float32, device=self.device)
         self.max_displacement = 1.0 / cfg.grid_res * cfg.scale / 2.1
 

@@ -23,9 +23,6 @@ from .math import safe_normalize
 
 FLT_EPS = 1.1920929e-7
 
-# Launches of the bilateral CUDA kernel (plain integer; chip_smoke resets it).
-bilateral_launches = 0
-
 
 def _inv2var(sigma) -> float:
     """0.5 / max(σ², ε), as the TPU kernel computes it from its σ scalar."""
@@ -73,7 +70,6 @@ def bilateral_accumulate(col, nrm, zdz, sigma, r: int = 11, denom_from_tap: bool
     plain version.  col (H, W, C) with C in {3, 6}, nrm (H, W, 3), zdz
     (H, W, 2) f32; ``sigma`` a Python or 0-d tensor scalar.  Returns
     (acc_col (H, W, C), acc_w (H, W, 1))."""
-    global bilateral_launches
     if col.device.type == "cpu":
         return bilateral_plain(col, nrm, zdz, sigma, r, denom_from_tap)
     h, w, c = col.shape
@@ -92,7 +88,6 @@ def bilateral_accumulate(col, nrm, zdz, sigma, r: int = 11, denom_from_tap: bool
         int(bool(denom_from_tap)), ctypes.c_void_p(kernels.stream_ptr(col)),
     )
     kernels.check(err, "bilateral_accumulate")
-    bilateral_launches += 1
     return acc_col, acc_w
 
 

@@ -19,10 +19,10 @@ of 1e5-1e6 on rows whose gradient is exactly zero: padded extraction slots
 read one sentinel row, background pixels read face 0, padded faces read one
 vertex, and each read is masked after the gather.
 
-Counters: ``gather_bwd_launches`` counts the kernel's launches (a plain
-integer); :func:`gather_stats` reads the rows the backward saw and the rows
-it scattered, summed on each device (it synchronizes: call it outside a
-step).
+Counters: ``utils/kernels.kernel_launches()`` counts the kernel's launches
+(``gather_rows``); :func:`gather_stats` reads them and the rows the backward
+saw and the rows it scattered, summed on each device (it synchronizes: call
+it outside a step).
 """
 from __future__ import annotations
 
@@ -34,9 +34,6 @@ from torch.autograd.function import once_differentiable
 
 from ..utils import kernels
 from ..utils.spans import span
-
-# Launches of the scatter CUDA kernel (plain integer; chip_smoke resets it).
-gather_bwd_launches = 0
 
 _stats: dict = {}  # device → int64 (2,): rows seen, rows scattered
 
@@ -55,7 +52,7 @@ def gather_stats() -> dict:
     for t in _stats.values():
         a, b = t.tolist()
         seen, scattered = seen + a, scattered + b
-    return {"launches": gather_bwd_launches, "rows_seen": seen, "rows_scattered": scattered}
+    return {"launches": kernels.kernel_launches()["gather_rows"], "rows_seen": seen, "rows_scattered": scattered}
 
 
 def scatter_rows_plain(g, idx, n: int):
@@ -71,7 +68,6 @@ def scatter_rows(g, idx, n: int):
     """(n, C) with row ``idx[i]`` the sum of the rows ``g[i]`` (M, C) that
     name it.  CUDA tensors: the hand kernel, f32 or bf16 (summed in f32 and
     rounded once, as aten's sum does); CPU tensors: the plain version."""
-    global gather_bwd_launches
     if g.device.type == "cpu":
         return scatter_rows_plain(g, idx, n)
     m, c = g.shape
@@ -88,7 +84,6 @@ def scatter_rows(g, idx, n: int):
             ctypes.c_void_p(_stats_on(g.device).data_ptr()), ctypes.c_void_p(kernels.stream_ptr(g)),
         )
         kernels.check(err, "scatter_rows")
-        gather_bwd_launches += 1
     return out if g.dtype == torch.float32 else out.to(g.dtype)
 
 

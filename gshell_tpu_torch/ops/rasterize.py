@@ -39,9 +39,6 @@ _PX = TILE * TILE
 _CHUNK = 16384  # pairs per block of the plain stage B
 STAGE_B_SUB = 32  # most pairs per sub-segment of the stage-B kernel (kSub)
 
-# Calls of the stage-B CUDA kernel (plain integer; chip_smoke resets it).
-# Each call launches three CUDA kernels: schedule, test and unpack.
-stage_b_calls = 0
 _layout_checked = False
 
 
@@ -373,7 +370,6 @@ def rasterize_stage_b(pair_data, tile_start, tile_cnt, n_tiles: int, tx_n: int):
     ``pair_data`` (otherwise the kernel fails its launch, and the next
     synchronization raises).  Returns (best_z, best_id) as (n_tiles, TILE²)
     f32 / int32, id -1 = miss."""
-    global stage_b_calls
     if pair_data.device.type == "cpu":
         return stage_b_plain(pair_data, tile_start, tile_cnt, n_tiles, tx_n)
     dev = pair_data.device
@@ -397,7 +393,6 @@ def rasterize_stage_b(pair_data, tile_start, tile_cnt, n_tiles: int, tx_n: int):
         ctypes.c_void_p(kernels.stream_ptr(pair_data)),
     )
     kernels.check(err, "rasterize_stage_b")
-    stage_b_calls += 1
     return best_z, best_id
 
 

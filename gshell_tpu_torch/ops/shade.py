@@ -19,8 +19,9 @@ takes f32 pixel rows, pool and marcher grid and an f32 or bf16 light, and
 :func:`env_shade` raises on anything else there.  On the CPU the eager walk
 runs, which is also the plain version the kernel is held to.
 
-Counters: ``mc_shade_launches`` counts the kernel pair's launches (a
-forward walk 1, a reverse walk one a block of samples); :func:`shade_stats`
+Counters: ``utils/kernels.kernel_launches()`` counts the kernel pair's
+launches (``mc_shade``: a forward walk 1, a reverse walk one a block of
+samples); :func:`shade_stats`
 reads the walks each path took and the rows the kernel shaded and skipped
 (it synchronizes: call it outside a step).
 """
@@ -477,7 +478,6 @@ class _MCAccumulate(torch.autograd.Function):
 
 # Walks taken by each path (plain integers) and, per device, the kernel's
 # rows shaded and rows skipped by the mask (int64 (2,), added on the card).
-mc_shade_launches = 0
 _walks = {"kernel": 0, "eager": 0}
 _rows: dict = {}
 
@@ -551,7 +551,6 @@ def mc_walk_kernel(walk, mask, tensors):
     """The kernel's forward walk: (P, 6) diffuse and specular sums, rows with
     ``mask`` 0 left 0.  Returns (out, rows), the packed pixel rows the
     reverse reads."""
-    global mc_shade_launches
     a = dict(zip(walk.names, tensors))
     rows = torch.cat([a["gb_normal"], a["kd"], a["ks"][:, 2:3], a["wo"], a["alpha"], a["p_diffuse"],
                       walk.ro, walk.rot, mask.to(torch.float32)], dim=1).contiguous()
@@ -561,7 +560,6 @@ def mc_walk_kernel(walk, mask, tensors):
     args.out, args.stats = ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(_rows_on(rows.device).data_ptr())
     kernels.check(kernels.lib().gs_mc_shade_fwd(ctypes.byref(args), ctypes.c_void_p(kernels.stream_ptr(rows))),
                   "mc_shade_fwd")
-    mc_shade_launches += 1
     return out, rows
 
 
@@ -570,7 +568,6 @@ def mc_rewalk_kernel(walk, rows, pool, light, g, need=(True,) * 8):
     cotangents of the walk's eight inputs (``_ShadeWalk.names``) for the
     (P, 6) cotangent ``g``, None where ``need`` is false; the pool's and the
     light's are computed only if needed."""
-    global mc_shade_launches
     p, dev = rows.shape[0], rows.device
     g_rows = torch.zeros((p, 12), dtype=torch.float32, device=dev)
     g_pool = torch.zeros_like(pool) if need[6] else None
@@ -588,7 +585,6 @@ def mc_rewalk_kernel(walk, rows, pool, light, g, need=(True,) * 8):
     for j in range(walk.n_blocks):
         args.j0 = j * walk.block_size
         kernels.check(kernels.lib().gs_mc_shade_bwd(ctypes.byref(args), stream), "mc_shade_bwd")
-        mc_shade_launches += 1
     g_ks = torch.cat([torch.zeros((p, 2), dtype=torch.float32, device=dev), g_rows[:, 6:7]], dim=1)
     grads = (g_rows[:, 0:3], g_rows[:, 3:6], g_ks, g_rows[:, 7:10], g_rows[:, 10:11], g_rows[:, 11:12],
              g_pool, g_light)

@@ -11,10 +11,6 @@ import torch
 from ..geometry.flexi_geometry import FlexiGeometryConfig, GShellFlexiGeometry
 from ..geometry.geometry import GeometryConfig, GShellGeometry
 from ..geometry.mlp import MLPConfig
-from ..ops import denoiser as dn
-from ..ops import gather as ga
-from ..ops import rasterize as rz
-from ..ops import shade as sh
 from ..render.light import create_trainable_env_rnd
 from ..render.material import MLPTexture3DConfig, default_kd_ks_min_max, init_mlp_texture
 from ..render.render import RenderFlags
@@ -27,18 +23,6 @@ from .reconstruct import Reconstructor, TrainConfig
 GT_LIGHT_SEED, GT_MATERIAL_SEED, GT_LIGHT_RES = 42, 43, 256
 
 _TRUE, _FALSE = ("1", "true", "yes", "on"), ("0", "false", "no", "off")
-
-
-def kernel_launches() -> dict:
-    """The hand kernels' launch counters (they stay 0 on the CPU, where the
-    plain versions run)."""
-    return {"rasterize_stage_b": rz.stage_b_calls, "bilateral_accumulate": dn.bilateral_launches,
-            "gather_rows": ga.gather_bwd_launches, "mc_shade": sh.mc_shade_launches}
-
-
-def launches_since(start: dict) -> dict:
-    now = kernel_launches()
-    return {k: now[k] - start[k] for k in now}
 
 
 def sync(device) -> None:

@@ -47,10 +47,10 @@ from .render.material import load_mtl, merge_materials, texture_material
 from .render.mesh import load_obj, save_obj, unit_size
 from .render.render import render_mesh, render_uv
 from .train.reconstruct import load_state, save_state
-from .train.setup import (add_bool, gt_light_material, kernel_launches, launches_since,
-                          reconstructor_from_flags, resolve_device, sync)
+from .train.setup import add_bool, gt_light_material, reconstructor_from_flags, resolve_device, sync
 from .utils.config import load_flags
 from .utils.image import save_image
+from .utils.kernels import kernel_launches, launches_since
 from .utils.rng import TorchDraws
 
 PROG = "gshell_tpu_torch.train_gshell"

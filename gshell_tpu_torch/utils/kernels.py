@@ -11,6 +11,10 @@ and sums round exactly as PyTorch's eager elementwise ops do — the stage-B
 kernel's top-left tie test (``e == 0``) and the z tie-break are compared
 bit-for-bit against the plain version.  ``--use_fast_math`` is never passed:
 it changes ``expf``, division and reciprocal rounding.
+
+Every launch goes through :func:`check`, which also counts it:
+:func:`kernel_launches` reads the counts (they stay 0 on the CPU, where the
+plain versions run).
 """
 from __future__ import annotations
 
@@ -32,6 +36,12 @@ NVCC_FLAGS = (
 
 _lib = None
 build_seconds: float | None = None
+
+# The name each launch site of the port gives :func:`check` → the key it
+# counts under; a launch named otherwise (a test's probe) is not counted.
+COUNTED_AS = {"rasterize_stage_b": "rasterize_stage_b", "bilateral_accumulate": "bilateral_accumulate",
+              "scatter_rows": "gather_rows", "mc_shade_fwd": "mc_shade", "mc_shade_bwd": "mc_shade"}
+_launches = dict.fromkeys(COUNTED_AS.values(), 0)
 
 
 class McShadeArgs(ctypes.Structure):
@@ -127,9 +137,32 @@ def lib() -> ctypes.CDLL:
 
 
 def check(err: int, name: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    """Raise on a non-zero ``cudaError_t`` returned by a launch; otherwise
+    count the launch under ``COUNTED_AS[name]``, if it names one."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    if name in COUNTED_AS:
+        _launches[COUNTED_AS[name]] += 1
+
+
+def kernel_launches() -> dict:
+    """The hand kernels' launches since the process started (or since
+    :func:`zero_launches`), by key: ``rasterize_stage_b`` (three CUDA kernels
+    each: schedule, test, unpack), ``bilateral_accumulate``, ``gather_rows``
+    (the gathers' backward) and ``mc_shade`` (a forward walk 1, a reverse
+    walk one a block of samples)."""
+    return dict(_launches)
+
+
+def launches_since(start: dict) -> dict:
+    now = kernel_launches()
+    return {k: now[k] - start[k] for k in now}
+
+
+def zero_launches() -> None:
+    """Every launch count to 0."""
+    for k in _launches:
+        _launches[k] = 0
 
 
 def stream_ptr(t) -> int:

@@ -32,6 +32,7 @@ from gshell_tpu_torch.ops import denoiser as dn
 from gshell_tpu_torch.ops import gather as ga
 from gshell_tpu_torch.ops import rasterize as rz
 from gshell_tpu_torch.ops.math import lookat, perspective, xfm_points
+from gshell_tpu_torch.utils.kernels import kernel_launches
 from gshell_tpu_torch.utils.synthetic import crowded_tile_mesh
 
 pytestmark = pytest.mark.cuda
@@ -57,10 +58,10 @@ def test_stage_b_kernel_matches_plain(dev, res, n_faces, seed):
     faces = torch.randint(0, n_faces // 2, (n_faces, 3), generator=g).to(dev)
     bins = rz.bin_pairs(v_clip, faces, (res, res))
     args = (bins.pair_data, bins.tile_start, bins.tile_cnt, bins.n_tiles, bins.tx_n)
-    before = rz.stage_b_calls
+    before = kernel_launches()["rasterize_stage_b"]
     kz, kid = rz.rasterize_stage_b(*args)
     torch.cuda.synchronize()
-    assert rz.stage_b_calls == before + 1
+    assert kernel_launches()["rasterize_stage_b"] == before + 1
     pz, pid = rz.stage_b_plain(*args)
     hit = pid >= 0
     assert int(hit.sum()) > 0
@@ -145,10 +146,10 @@ def test_bilateral_kernel_matches_plain(dev, h, w, r, from_tap, channels):
     col, nrm, zdz = _stencil_inputs(h, w, 3, dev)
     if channels == 6:
         col = torch.cat([col, 1.0 - 2.0 * col.flip(0)], -1).contiguous()
-    before = dn.bilateral_launches
+    before = kernel_launches()["bilateral_accumulate"]
     kc, kw = dn.bilateral_accumulate(col, nrm, zdz, 2.0, r, denom_from_tap=from_tap)
     torch.cuda.synchronize()
-    assert dn.bilateral_launches == before + 1
+    assert kernel_launches()["bilateral_accumulate"] == before + 1
     pc, pw = dn.bilateral_plain(col, nrm, zdz, 2.0, r, denom_from_tap=from_tap)
     torch.testing.assert_close(kc, pc, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(kw, pw, rtol=1e-5, atol=1e-6)
@@ -286,12 +287,12 @@ def test_train_step_on_the_card_runs_through_both_kernels(dev):
         "img": torch.cat([0.5 * disk.repeat(batch, 1, 1, 3), disk.repeat(batch, 1, 1, 1)], -1),
         "background": torch.zeros((batch, res, res, 3)),
     }.items()}
-    sb, bl, gb = rz.stage_b_calls, dn.bilateral_launches, ga.gather_bwd_launches
+    sb, bl, gb = (kernel_launches()[k] for k in ("rasterize_stage_b", "bilateral_accumulate", "gather_rows"))
     m = rec.train_step(state, draws.child("step"), target)
     torch.cuda.synchronize()
-    assert rz.stage_b_calls - sb == batch
-    assert dn.bilateral_launches - bl == 2 * batch
-    assert ga.gather_bwd_launches > gb
+    assert kernel_launches()["rasterize_stage_b"] - sb == batch
+    assert kernel_launches()["bilateral_accumulate"] - bl == 2 * batch
+    assert kernel_launches()["gather_rows"] > gb
     assert int(m["n_faces"]) > 0 and int(m["raster_dropped"]) == 0
     for k in ("total", "img_loss", "reg_loss"):
         assert math.isfinite(float(m[k])), k
@@ -349,13 +350,13 @@ def test_stage_b_kernel_and_binned_second_layer_match_the_scan(dev, mesh):
     res = 512
     v_clip, faces = _skirt_view(res, dev) if mesh == "skirt" else (t.to(dev) for t in crowded_tile_mesh(res))
     scan = rz.rasterize_peel(v_clip, faces, (res, res), n_layers=2)
-    before = rz.stage_b_calls
+    before = kernel_launches()["rasterize_stage_b"]
     kernel = rz.rasterize_tiled(v_clip, faces, (res, res))
     torch.cuda.synchronize()
-    assert rz.stage_b_calls == before + 1
+    assert kernel_launches()["rasterize_stage_b"] == before + 1
     binned = rz.rasterize_tiled_peel(v_clip, faces, (res, res))
     torch.cuda.synchronize()
-    assert rz.stage_b_calls == before + 2
+    assert kernel_launches()["rasterize_stage_b"] == before + 2
     assert int((scan[1].tri_id > 0).sum()) > 1000
     for what, a, b in (("kernel", kernel, scan[0]), ("binned 1", binned[0], scan[0]), ("binned 2", binned[1], scan[1])):
         d = rz.layer_differences(a, b, v_clip, faces, tol=1e-6)
@@ -403,7 +404,7 @@ def test_map_remat_matches_map_on_the_card(dev):
                             TrainConfig(batch=batch))
         state = rec.init_state(TorchDraws(torch.Generator(dev).manual_seed(0)), pretrain_steps=300)
         gen = torch.Generator(dev).manual_seed(1)
-        sb, bl = rz.stage_b_calls, dn.bilateral_launches
+        sb, bl = kernel_launches()["rasterize_stage_b"], kernel_launches()["bilateral_accumulate"]
         img, depth, reg, _ = geo.tick(TorchDraws(gen), state.params_geo, state.params_mat, mat,
                                       update_pdf(state.light_base), target, 1000, rec.flags, rec.image_loss_fn,
                                       shadow_scale=1.0, denoiser_sigma=2.0)
@@ -411,7 +412,8 @@ def test_map_remat_matches_map_on_the_card(dev):
         torch.cuda.synchronize()
         leaves = [p for o in state.optimizers for g in o.param_groups for p in g["params"]]
         out[mode] = ([float(x.detach()) for x in (img, depth, reg)], [p.grad.detach().clone() for p in leaves],
-                     gen.get_state(), rz.stage_b_calls - sb, dn.bilateral_launches - bl)
+                     gen.get_state(), kernel_launches()["rasterize_stage_b"] - sb,
+                     kernel_launches()["bilateral_accumulate"] - bl)
     (la, ga, sa, sba, bla), (lb, gb, sbb_state, sbb, blb) = out["map"], out["map_remat"]
     assert la[1] > 0 and all(math.isfinite(x) for x in la)
     for a, b in zip(la, lb):
@@ -500,11 +502,11 @@ def test_texture2d_render_on_the_card_matches_the_cpu(dev):
         for lvl, (ga, gb) in enumerate(zip(*grads)):
             atol = 1e-5 * max(float(gb.abs().max()), 1e-6)
             torch.testing.assert_close(ga.cpu(), gb, rtol=1e-4, atol=atol, msg=f"{name} level {lvl}")
-    sb, bl = rz.stage_b_calls, dn.bilateral_launches
+    sb, bl = kernel_launches()["rasterize_stage_b"], kernel_launches()["bilateral_accumulate"]
     with torch.no_grad():
         pbr_card, _ = render(dev, "pbr")
         torch.cuda.synchronize()
-        assert (rz.stage_b_calls - sb, dn.bilateral_launches - bl) == (1, 1)
+        assert (kernel_launches()["rasterize_stage_b"] - sb, kernel_launches()["bilateral_accumulate"] - bl) == (1, 1)
         pbr_cpu, _ = render("cpu", "pbr")
     assert float((pbr_card["shaded"].cpu() - pbr_cpu["shaded"]).abs().mean()) < 2e-3
     assert "diffuse_light" in pbr_card and "diffuse_light" not in card
@@ -537,10 +539,10 @@ def _hold_scatter(g, idx, n):
         (idx,), g.float().abs().nan_to_num(0.0, 0.0, 0.0), accumulate=True)
     live = int((g != 0).any(1).sum())
     before = ga.gather_stats()
-    launches = ga.gather_bwd_launches
+    launches = kernel_launches()["gather_rows"]
     got = ga.scatter_rows(g, idx, n)
     after = ga.gather_stats()
-    assert ga.gather_bwd_launches == launches + 1
+    assert kernel_launches()["gather_rows"] == launches + 1
     assert after["rows_seen"] - before["rows_seen"] == g.shape[0]
     assert after["rows_scattered"] - before["rows_scattered"] == live
     assert got.dtype == want.dtype

@@ -14,8 +14,8 @@ import zlib
 import pytest
 import torch
 
-from gshell_tpu_torch.ops import gather as ga
 from gshell_tpu_torch.ops.gather import gather_rows, gather_stats, scatter_rows_plain
+from gshell_tpu_torch.utils.kernels import kernel_launches
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f64": torch.float64}
 BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float64: torch.int64}
@@ -156,7 +156,7 @@ def test_gather_stats_counts_rows_seen_and_scattered():
     after = gather_stats()
     assert after["rows_seen"] - before["rows_seen"] == 300
     assert after["rows_scattered"] - before["rows_scattered"] == 6 * 20 + 1
-    assert after["launches"] == before["launches"] == ga.gather_bwd_launches  # no kernel on the CPU
+    assert after["launches"] == before["launches"] == kernel_launches()["gather_rows"]  # no kernel on the CPU
 
 
 def test_a_double_backward_is_refused():

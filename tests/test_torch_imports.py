@@ -195,9 +195,6 @@ print("ok")
     ["gshell_tpu_torch.bake_grids", "--help"],
     ["gshell_tpu_torch.main_diffusion", "--help"],
     ["gshell_tpu_torch.eval_gmeshdiffusion", "--help"],
-    ["gshell_tpu_torch.bench", "--help"],
-    ["gshell_tpu_torch.bench_extract", "--help"],
-    ["gshell_tpu_torch.bench_diffusion", "--help"],
 ])
 def test_entry_points_run_as_main_without_jax(tmp_path, argv):
     """``python -m`` of each entry point of the port, under the import guard."""
