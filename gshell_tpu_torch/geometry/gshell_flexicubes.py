@@ -14,6 +14,14 @@ tets), the mSDF keeps ``ν ≥ 0``, and a quad's winding flips where s at its
 edge's low corner is > 0.  Stop-gradients sit where the JAX function puts
 them: the mSDF carried by vertices uses detached interpolation and β / γ
 weights, so ν is moved only through its own values.
+
+Every gather of a float tensor that carries a gradient is a row gather
+(``ops.gather.gather_rows``), whose backward skips the all-zero rows that
+the padded slots read from the sentinel rows; on the CPU each one's gradient
+is aten's bit for bit.  Tensors gathered by one index are packed into the
+columns of one tensor and gathered once, except in the cut: the vertices and
+their detached-weight ν are outputs too, and a packed gather would add the
+two gathers' gradients together before the output's, in another order.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops.compact import nonzero_compact
+from ..ops.gather import gather_rows
 from ..ops.mesh_ops import auto_normals
 from . import flexicubes_tables as ft
 from .cube_grid import CubeGrid, default_cube_capacities
@@ -39,6 +48,12 @@ def _edge_to_vd_table() -> np.ndarray:
                 if e >= 0:
                     out[c, e] = k
     return out
+
+
+def _columns(a, *widths):
+    """Views of the parts of ``a``'s last axis, ``widths`` wide; a part one
+    wide loses the axis.  One ``split``, whose backward is one ``cat``."""
+    return [p.squeeze(-1) if w == 1 else p for p, w in zip(a.split(widths, dim=-1), widths)]
 
 
 class FlexiMesh(NamedTuple):
@@ -116,6 +131,7 @@ class GShellFlexiCubes:
         s_p = torch.cat([s, torch.ones((1,), dtype=dt, device=dev)])  # the sentinel lies outside
         nu_p = torch.cat([nu, -torch.ones((1,), dtype=dt, device=dev)])
         occ_p = s_p < 0
+        xsn_p = torch.cat([x_p, s_p[:, None], nu_p[:, None]], dim=1)  # (N + 1, 5): x, s, ν
 
         # ---- weights ---------------------------------------------------------
         ones = lambda *shape: torch.ones(shape, dtype=dt, device=dev)
@@ -123,9 +139,8 @@ class GShellFlexiCubes:
         alpha_n = torch.tanh(alpha) * WEIGHT_SCALE + 1.0 if alpha is not None else ones(C, 8)
         gamma_n = (torch.sigmoid(gamma) * WEIGHT_SCALE + (1 - WEIGHT_SCALE) / 2
                    if gamma is not None else ones(C))
-        beta_p = torch.cat([beta_n, ones(1, 12)])
         alpha_p = torch.cat([alpha_n, ones(1, 8)])
-        gamma_p = torch.cat([gamma_n, ones(1)])
+        beta_gamma_p = torch.cat([torch.cat([beta_n, gamma_n[:, None]], dim=1), ones(1, 13)])  # (C + 1, 13)
 
         # ---- surface cubes and case ids --------------------------------------
         occ8_all = occ_p[self.cubes_pad[:-1]]  # (C, 8)
@@ -163,13 +178,12 @@ class GShellFlexiCubes:
         cube8 = self.cubes_pad[cube_slots]  # (MC, 8)
         ecorn = self.cube_edge_corners
         v_a, v_b = cube8[:, ecorn[:, 0]], cube8[:, ecorn[:, 1]]  # (MC, 12)
-        a8 = alpha_p[cube_slots]
-        al_a, al_b = a8[:, ecorn[:, 0]], a8[:, ecorn[:, 1]]
-        b12 = beta_p[cube_slots]
-        gam = gamma_p[cube_slots]
-        xa, xb = x_p[v_a], x_p[v_b]  # (MC, 12, 3)
-        sa, sb = s_p[v_a], s_p[v_b]
-        na, nb = nu_p[v_a], nu_p[v_b]
+        # α of each edge's two corners, from α flattened to rows 8·cube + corner
+        alpha_flat, corner0 = alpha_p.reshape(-1), cube_slots[:, None] * 8
+        al_a, al_b = gather_rows(alpha_flat, corner0 + ecorn[:, 0]), gather_rows(alpha_flat, corner0 + ecorn[:, 1])
+        b12, gam = _columns(gather_rows(beta_gamma_p, cube_slots), 12, 1)  # (MC, 12), (MC,)
+        xa, sa, na = _columns(gather_rows(xsn_p, v_a), 3, 1, 1)  # (MC, 12, 3), (MC, 12), (MC, 12)
+        xb, sb, nb = _columns(gather_rows(xsn_p, v_b), 3, 1, 1)
 
         # α-weighted crossing: weights (w_b, -w_a) / (w_b - w_a) on (x_a, x_b)
         wa_c, wb_c = sa * al_a, sb * al_b
@@ -230,7 +244,7 @@ class GShellFlexiCubes:
         k_of = self.edge_to_vd[case_s[adj_slot_c], adj_local]  # (ME, 4) ∈ [-1, 4)
         quad_good = quad_good & (k_of >= 0).all(-1)
         quad_vd = adj_slot_c * 4 + torch.clamp(k_of, 0, 3)
-        flip = s_p[self.edges_pad[edge_slots][:, 0]] > 0
+        flip = s_p.detach()[self.edges_pad[edge_slots][:, 0]] > 0
         quad = torch.where(flip[:, None], quad_vd[:, [0, 1, 3, 2]], quad_vd[:, [2, 3, 1, 0]])
 
         n_vd = 4 * MC
@@ -242,7 +256,8 @@ class GShellFlexiCubes:
         gam_vd = gam.repeat_interleave(4)
 
         # γ-weighted centre of each quad
-        qv, qnu, qnu_sg, qg = vd_flat[quad], nu_flat[quad], nu_sg_flat[quad], gam_vd[quad]
+        qattr = torch.cat([vd_flat, nu_flat[:, None], nu_sg_flat[:, None], gam_vd[:, None]], dim=1)
+        qv, qnu, qnu_sg, qg = _columns(gather_rows(qattr, quad), 3, 1, 1, 1)  # (ME, 4, 3), (ME, 4) × 3
         g02, g13 = qg[:, 0] * qg[:, 2], qg[:, 1] * qg[:, 3]
         wsum = g02 + g13 + 1e-8
         center = (((qv[:, 0] + qv[:, 2]) / 2) * g02[:, None] + ((qv[:, 1] + qv[:, 3]) / 2) * g13[:, None]) \
@@ -281,18 +296,18 @@ class GShellFlexiCubes:
         # ---- mSDF cut of each triangle ------------------------------------------
         fv = faces_wt
         F = fv.shape[0]
-        mocc = (nu_wt[fv] >= 0.0).to(torch.int64)  # (F, 3)
+        u_id, w_id = fv, fv[:, [1, 2, 0]]  # the face's edges (0,1), (1,2), (2,0)
+        mu_, mw_ = gather_rows(nu_wt, u_id), gather_rows(nu_wt, w_id)  # (F, 3)
+        mocc = (mu_ >= 0.0).to(torch.int64)  # ν at the face's corners
         msum = mocc.sum(-1)
         cfg_idx = mocc[:, 0] * 4 + mocc[:, 1] * 2 + mocc[:, 2]
-        u_id, w_id = fv, fv[:, [1, 2, 0]]  # the face's edges (0,1), (1,2), (2,0)
-        mu_, mw_ = nu_wt[u_id], nu_wt[w_id]
         den = mu_ - mw_
         cut_ok = (torch.abs(den) > 1e-8) & face_wt_valid[:, None]
         den_s = torch.where(cut_ok, den, 1.0)
         bu = torch.where(cut_ok, -mw_ / den_s, 0.0)
         bw = torch.where(cut_ok, mu_ / den_s, 0.0)
-        b_verts = verts_wt[u_id] * bu[..., None] + verts_wt[w_id] * bw[..., None]
-        b_nu = nu_wt_sg[u_id] * bu.detach() + nu_wt_sg[w_id] * bw.detach()
+        b_verts = gather_rows(verts_wt, u_id) * bu[..., None] + gather_rows(verts_wt, w_id) * bw[..., None]
+        b_nu = gather_rows(nu_wt_sg, u_id) * bu.detach() + gather_rows(nu_wt_sg, w_id) * bw.detach()
         b_verts = torch.where(cut_ok[..., None], b_verts, 0.0)
         b_nu = torch.where(cut_ok, b_nu, 0.0)
 

@@ -218,3 +218,36 @@ def test_full_slots_truncate_and_report_as_in_jax():
     used = _used_rows(mj)
     assert_close(mt.verts[used], np.asarray(mj.verts)[used], rtol=1e-6, atol=1e-7, what="verts")
     assert int(mt.n_surf_cubes) > 80 and int(mt.n_quad_edges) > 80
+
+
+def _nodes_to(outputs):
+    """The autograd nodes reachable from ``outputs``: their class names, and
+    the leaves their ``AccumulateGrad`` nodes feed."""
+    names, leaves, seen = [], [], set()
+    todo = [o.grad_fn for o in outputs if o.grad_fn is not None]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.append(type(node).__name__)
+        if names[-1] == "AccumulateGrad":
+            leaves.append(node.variable)
+        todo.extend(f for f, _ in node.next_functions)
+    return names, leaves
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_flexicubes_gathers_take_the_row_gather_backward(training):
+    """Between the extractor's outputs and all six inputs, no gather is left
+    on aten's ``IndexBackward0`` (whose backward on the card sorts the padded
+    slots' runs on the sentinel rows): each is ``ops.gather.gather_rows``,
+    12 in the extractor (α's two corners, β with γ, x / s / ν at both edge
+    ends, the quad corners, the cut's six) and 3 in the vertex normals."""
+    grid, x, s, nu, weights = _inputs(8, "cut", seed=8 + len("cut"))
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (x, s, nu) + weights]
+    mesh = GShellFlexiCubes(grid, "cpu")(*args[:3], beta=args[3], alpha=args[4], gamma=args[5], training=training)
+    names, leaves = _nodes_to([getattr(mesh, k) for k in OUTPUTS])
+    assert "IndexBackward0" not in names
+    assert names.count("_GatherRowsBackward") == 15
+    assert {id(v) for v in leaves} == {id(a) for a in args}
